@@ -1,0 +1,9 @@
+"""MGit on PyTorch and CUDA: model lineage, versioning and delta storage.
+
+A port of the reference package ``repro`` (JAX, TPU) that runs its
+storage hot path on an NVIDIA H100 through hand-written CUDA kernels
+(``repro_torch.kernels``). It imports torch, numpy and the standard
+library, and nothing of ``jax`` or ``repro``. Ported so far: the lineage
+graph and artifacts (``core``), the content-addressed delta store
+(``store``) and the dense model configs and initialisation (``models``).
+"""

@@ -1,0 +1,176 @@
+"""Public entry points of the storage-path kernels.
+
+This is the one place where the store's host arrays meet the device. Each
+function takes numpy arrays (or torch tensors), moves them to the
+backend's device, calls the kernel wrapper there, and returns numpy
+arrays on the host. The signatures and return values are the reference
+package's (``repro/kernels/ops.py``).
+
+Backends:
+
+* ``"cuda"``, the default: the hand-written CUDA kernels on the card.
+  :func:`default_backend` raises when there is no card, so nothing falls
+  back to the CPU unless the caller asked for it;
+* ``"ref"``: the plain torch versions on the CPU (``ref.py``).
+
+The reference pads every tensor to (rows, 1024) TPU tiles; the CUDA kernels
+work on flat tensors with a masked tail, so zero counts need no padding
+correction. ``fingerprint`` keeps the reference's padded layout, because
+its hash depends on it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.build import BF16_ITEM
+from repro_torch.kernels.chain_apply import chain_apply_flat
+from repro_torch.kernels.delta_quantize import (delta_quantize_flat,
+                                                dequant_apply_flat)
+from repro_torch.kernels.snapshot_fused import snapshot_fused_flat
+
+LANE_COLS = 1024
+FINGERPRINT_ITEM = "fingerprint_2d (with the checkpointing slice)"
+_DEVICES = {"cuda": "cuda", "ref": "cpu"}
+
+
+def default_backend() -> str:
+    """``"cuda"``; raises when PyTorch sees no CUDA device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the storage kernels run on the card; pass "
+            "backend='ref' to ask for the plain torch versions on the CPU")
+    return "cuda"
+
+
+def _device(backend: Optional[str]) -> torch.device:
+    backend = backend or default_backend()
+    try:
+        return torch.device(_DEVICES[backend])
+    except KeyError:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{sorted(_DEVICES)}") from None
+
+
+def _to(x, device: torch.device) -> torch.Tensor:
+    """``x`` as a contiguous tensor on ``device``. Read-only numpy arrays
+    (CAS views) are copied first: torch cannot wrap them."""
+    if not isinstance(x, torch.Tensor):
+        a = np.asarray(x)
+        if not a.flags.writeable:
+            a = a.copy()
+        x = torch.from_numpy(np.ascontiguousarray(a))
+    return x.to(device).contiguous()
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array on the host."""
+    if t.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"bfloat16 results have no numpy dtype here; they wait for the "
+            f"ROADMAP item '{BF16_ITEM}'")
+    return t.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# delta quantize / dequantize
+# ---------------------------------------------------------------------------
+
+def delta_quantize(p1, p2, eps: float = 1e-4, backend: Optional[str] = None,
+                   return_block_zeros: bool = False):
+    """Quantized delta q = floor((p1-p2)/scale + 0.5) (paper Algorithm 1).
+
+    Returns (q int32 array shaped like p1, n_zero int) — optionally also the
+    zero counts the kernel reduced (one per launch; None on ``"ref"``).
+    """
+    dev = _device(backend)
+    q, zeros = delta_quantize_flat(_to(p1, dev), _to(p2, dev), eps)
+    nz = int(zeros)
+    if return_block_zeros:
+        return (to_host(q), nz,
+                None if dev.type == "cpu" else np.array([nz], np.int32))
+    return to_host(q), nz
+
+
+def dequant_apply(p1, q, eps: float = 1e-4, out_dtype=None,
+                  backend: Optional[str] = None):
+    """Reconstruct the child parameter: p2' = p1 - q*scale."""
+    dev = _device(backend)
+    a = _to(p1, dev)
+    out = dequant_apply_flat(a, _to(q, dev).to(torch.int32), eps)
+    return to_host(out.to(_ref.torch_dtype(out_dtype) if out_dtype is not None
+                        else a.dtype))
+
+
+def chain_apply(base, qs, eps: float = 1e-4, out_dtype=None,
+                backend: Optional[str] = None):
+    """Fused delta-chain application: ``base - sum(qs) * scale`` (§10.2).
+
+    ``qs`` is a sequence of quantized deltas (int8/int32) from one same-eps
+    chain segment; they are widened into one int32 stack on the device.
+    Bit-identical to summing on the host and calling ``dequant_apply``
+    once — int32 sums are exact, and the final multiply+subtract is the
+    same correctly-rounded f32 op either way."""
+    dev = _device(backend)
+    b = _to(base, dev)
+    stack = torch.stack([_to(q, dev).to(torch.int32).reshape(b.shape)
+                         for q in qs])
+    out = chain_apply_flat(b.to(torch.float32), stack, eps)
+    return to_host(out.to(_ref.torch_dtype(out_dtype) if out_dtype is not None
+                        else b.dtype))
+
+
+def snapshot_fused(p1, p2, eps: float = 1e-4, backend: Optional[str] = None,
+                   with_fingerprint: bool = True):
+    """One-pass checkpoint snapshot: (q int8|int32, n_zero, fingerprint, narrow).
+
+    Narrows q to int8 when every value fits; tensors with overflow fall back
+    to the int32 ``delta_quantize`` (`narrow=False`). ``with_fingerprint=
+    False`` elides the fingerprint (returned as None) — the commit pipeline
+    keys objects by SHA-256 and never reads it.
+    """
+    dev = _device(backend)
+    fp = fingerprint(p2, backend=backend) if with_fingerprint else None
+    a = _to(p1, dev).to(torch.float32)
+    b = _to(p2, dev).to(torch.float32)
+    q8, zeros, overflow = snapshot_fused_flat(a, b, eps)
+    if int(overflow) > 0:
+        q, nz = delta_quantize_flat(a, b, eps)
+        return to_host(q), int(nz), fp, False
+    return to_host(q8), int(zeros), fp, True
+
+
+# ---------------------------------------------------------------------------
+# fingerprint
+# ---------------------------------------------------------------------------
+
+def fingerprint(x, backend: Optional[str] = None) -> int:
+    """64-bit content fingerprint (python int). Includes shape/dtype salt so
+    reshaped or recast tensors don't alias (mirrors SHA-256 keying in the CAS).
+
+    Only the plain version exists: on the card this raises until the
+    fingerprint kernel is ported."""
+    dev = _device(backend)
+    if dev.type != "cpu" or (isinstance(x, torch.Tensor) and x.is_cuda):
+        raise NotImplementedError(
+            f"ops.fingerprint has no CUDA kernel yet: ROADMAP item "
+            f"'{FINGERPRINT_ITEM}'")
+    t = _to(x, dev)
+    # the reference hashes the bits zero-padded to (rows, 1024), rows % 8 == 0
+    bits = _ref.bits_u32(t)
+    rows = -(-bits.shape[0] // LANE_COLS)
+    rows = -(-rows // 8) * 8
+    padded = torch.zeros(rows * LANE_COLS, dtype=torch.int64)
+    padded[:bits.shape[0]] = bits
+    pair = _ref.fingerprint_bits(padded)
+    h1, h2 = int(pair[0]), int(pair[1])
+    salt = hash((tuple(t.shape), _ref.dtype_name(t.dtype))) & 0xFFFFFFFF
+    return ((h1 ^ salt) << 32) | h2
+
+
+__all__ = ["delta_quantize", "dequant_apply", "chain_apply", "snapshot_fused",
+           "fingerprint", "default_backend"]

@@ -1,0 +1,293 @@
+"""The port's kernel layer against the reference package, on the CPU.
+
+Each plain torch version (``repro_torch/kernels/ref.py``) must equal the
+reference's ``backend="ref"`` oracle bit for bit over the reference kernel
+tests' shape sweep and f32/bf16/f16 inputs: quantized deltas, zero counts,
+the int8-narrowing decision, dequant and chain outputs, and the raw
+fingerprint pair. Where deltas are finetune-sized, the reference's Pallas
+kernels in interpret mode agree too. The CUDA kernels themselves run only
+on the card; ``chip_smoke.py`` holds them against these plain versions.
+Here the wrappers' CPU path, ``ops``' dispatch, the no-fallback rules and
+the ctypes bindings of the CUDA sources are checked.
+"""
+
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as jref
+from repro.kernels.chain_apply import chain_apply_ref as jchain_apply_ref
+from repro.kernels.snapshot_fused import snapshot_fused_ref as jsnapshot_ref
+
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.chain_apply import chain_apply_flat
+from repro_torch.kernels.delta_quantize import (delta_quantize_flat,
+                                                dequant_apply_flat)
+from repro_torch.kernels.snapshot_fused import snapshot_fused_flat
+
+SHAPES = [(8,), (100,), (128, 128), (257, 33), (1024,), (3, 5, 7),
+          (2048, 128), (1, 1)]
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16),
+          "float16": (jnp.float16, torch.float16)}
+# finetune-sized deltas, int8-overflowing ones, and large ones where a
+# multiply by 1/scale would round differently from the true division
+DELTA_SCALES = [1e-4, 3e-2, 3.0]
+
+
+def _pair(shape, dtype, scale, seed):
+    """(jax p1, jax p2, torch p1, torch p2) with equal values, from numpy
+    f32 cast once to ``dtype`` by each framework (both round to nearest)."""
+    rng = np.random.default_rng(seed)
+    p2 = rng.normal(size=shape).astype(np.float32)
+    p1 = (p2 + rng.normal(scale=scale, size=shape)).astype(np.float32)
+    jdt, tdt = DTYPES[dtype]
+    return (jnp.asarray(p1).astype(jdt), jnp.asarray(p2).astype(jdt),
+            torch.from_numpy(p1).to(tdt), torch.from_numpy(p2).to(tdt))
+
+
+def _f32_bits(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy().view(np.int32)
+    return np.asarray(x.astype(jnp.float32)).view(np.int32)
+
+
+@pytest.mark.parametrize("scale", DELTA_SCALES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_delta_quantize_ref_bit_identical(shape, dtype, scale):
+    j1, j2, t1, t2 = _pair(shape, dtype, scale, seed=len(shape) * 7 + 1)
+    qj, nzj = jref.delta_quantize_ref(j1, j2)
+    qt, nzt = ref.delta_quantize_ref(t1, t2)
+    assert qt.dtype == torch.int32 and tuple(qt.shape) == shape
+    np.testing.assert_array_equal(np.asarray(qj), qt.numpy())
+    assert int(nzj) == int(nzt)
+
+
+@pytest.mark.parametrize("scale", DELTA_SCALES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_snapshot_fused_ref_bit_identical(shape, dtype, scale):
+    j1, j2, t1, t2 = _pair(shape, dtype, scale, seed=len(shape) * 11 + 2)
+    q8j, zj, oj = jsnapshot_ref(jnp.ravel(j1), jnp.ravel(j2))
+    q8t, zt, ot = ref.snapshot_fused_ref(t1, t2)
+    assert q8t.dtype == torch.int8
+    np.testing.assert_array_equal(np.asarray(q8j), q8t.numpy().ravel())
+    assert (int(zj), int(oj)) == (int(zt), int(ot))
+    # the narrowing decision and the returned q through ops
+    qj, nzj, _, narrow_j = ref_ops.snapshot_fused(j1, j2, backend="ref",
+                                                  with_fingerprint=False)
+    qt, nzt, fp, narrow_t = ops.snapshot_fused(t1, t2, backend="ref",
+                                               with_fingerprint=False)
+    assert fp is None and narrow_j == narrow_t and nzj == nzt
+    assert np.asarray(qj).dtype == qt.dtype
+    np.testing.assert_array_equal(np.asarray(qj), qt)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_dequant_apply_ref_bit_identical(shape, dtype):
+    rng = np.random.default_rng(len(shape) * 13 + 3)
+    j1, _, t1, _ = _pair(shape, dtype, 1e-4, seed=len(shape) * 13 + 4)
+    q = rng.integers(-30000, 30000, size=shape).astype(np.int32)
+    outj = jref.dequant_apply_ref(j1, jnp.asarray(q))
+    outt = ref.dequant_apply_ref(t1, torch.from_numpy(q))
+    assert outt.dtype == t1.dtype
+    np.testing.assert_array_equal(_f32_bits(outj), _f32_bits(outt))
+    # an explicit f32 result skips the cast back to the input's dtype
+    outj = jref.dequant_apply_ref(j1, jnp.asarray(q), out_dtype=jnp.float32)
+    outt = ref.dequant_apply_ref(t1, torch.from_numpy(q), out_dtype="float32")
+    np.testing.assert_array_equal(_f32_bits(outj), _f32_bits(outt))
+
+
+@pytest.mark.parametrize("k", [1, 3, 6])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_chain_apply_ref_bit_identical(shape, k):
+    rng = np.random.default_rng(len(shape) * 17 + k)
+    base = rng.normal(size=shape).astype(np.float32)
+    qs = np.stack([rng.integers(-20000, 20000, size=shape).astype(np.int32)
+                   for _ in range(k)])
+    outj = jchain_apply_ref(jnp.asarray(base), jnp.asarray(qs))
+    outt = ref.chain_apply_ref(torch.from_numpy(base), torch.from_numpy(qs))
+    np.testing.assert_array_equal(_f32_bits(outj), _f32_bits(outt))
+    # the fold identity: one dequant of the exact int32 sum
+    single = ref.dequant_apply_ref(torch.from_numpy(base),
+                                   torch.from_numpy(qs.sum(0, dtype=np.int32)))
+    np.testing.assert_array_equal(_f32_bits(single), _f32_bits(outt))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES) + ["int32"])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_fingerprint_ref_raw_pair(shape, dtype):
+    rng = np.random.default_rng(len(shape) * 19 + 5)
+    if dtype == "int32":
+        x = rng.integers(-2**31, 2**31 - 1, size=shape).astype(np.int32)
+        xj, xt = jnp.asarray(x), torch.from_numpy(x)
+    else:
+        xj, _, xt, _ = _pair(shape, dtype, 1.0, seed=len(shape) * 19 + 6)
+    pj = np.asarray(jref.fingerprint_ref(xj)).astype(np.int64)
+    pt = ref.fingerprint_ref(xt).numpy()
+    np.testing.assert_array_equal(pj, pt)
+
+
+def test_fingerprint_sensitivity():
+    x = np.random.default_rng(0).normal(size=(256, 256)).astype(np.float32)
+    f0 = ops.fingerprint(x, backend="ref")
+    y = x.copy()
+    y[13, 200] += 1e-3
+    assert ops.fingerprint(y, backend="ref") != f0          # value change
+    assert ops.fingerprint(x.reshape(128, 512), backend="ref") != f0
+    assert ops.fingerprint(x, backend="ref") == f0          # deterministic
+    # low word (unsalted) equals the reference's padded-layout hash
+    assert (ops.fingerprint(x, backend="ref") & 0xFFFFFFFF
+            == ref_ops.fingerprint(x, backend="ref") & 0xFFFFFFFF)
+
+
+@pytest.mark.parametrize("shape", [(100,), (256, 1024), (257, 33)], ids=str)
+def test_ops_match_reference_interpret_kernels(shape):
+    """Finetune-sized deltas: the reference's Pallas kernels (interpret
+    mode) and the port's ``ops`` agree exactly."""
+    rng = np.random.default_rng(7)
+    p2 = rng.normal(size=shape).astype(np.float32)
+    p1 = (p2 + rng.normal(scale=1e-4, size=shape)).astype(np.float32)
+    qj, nzj = ref_ops.delta_quantize(p1, p2, backend="interpret")
+    qt, nzt = ops.delta_quantize(p1, p2, backend="ref")
+    np.testing.assert_array_equal(np.asarray(qj), qt)
+    assert nzj == nzt
+    sj = ref_ops.snapshot_fused(p1, p2, backend="interpret",
+                                with_fingerprint=False)
+    st = ops.snapshot_fused(p1, p2, backend="ref", with_fingerprint=False)
+    np.testing.assert_array_equal(np.asarray(sj[0]), st[0])
+    assert (sj[1], sj[3]) == (st[1], st[3])
+    outj = ref_ops.dequant_apply(p1, qj, backend="interpret")
+    outt = ops.dequant_apply(p1, qt, backend="ref")
+    np.testing.assert_array_equal(np.asarray(outj), outt)
+    qs = [qt.astype(np.int8), qt, -qt]
+    cj = ref_ops.chain_apply(p1, qs, backend="interpret")
+    ct = ops.chain_apply(p1, qs, backend="ref")
+    np.testing.assert_array_equal(np.asarray(cj), ct)
+
+
+def test_ops_overflow_fallback_and_block_zeros():
+    p2 = np.zeros(1000, np.float32)
+    p1 = p2.copy()
+    p1[3] = 1.0  # delta / 2e-4 = 5000 >> int8
+    q, nz, fp, narrow = ops.snapshot_fused(p1, p2, backend="ref")
+    assert not narrow and q.dtype == np.int32 and int(q[3]) > 127
+    assert nz == 999 and fp == ops.fingerprint(p2, backend="ref")
+    q2, nz2, blocks = ops.delta_quantize(p1, p2, backend="ref",
+                                         return_block_zeros=True)
+    np.testing.assert_array_equal(q, q2)
+    assert nz2 == 999 and blocks is None
+
+
+def test_ops_return_numpy_in_requested_dtype():
+    rng = np.random.default_rng(3)
+    p1 = rng.normal(size=(64, 33)).astype(np.float32)
+    q = rng.integers(-100, 100, size=p1.shape).astype(np.int8)
+    ro = p1.copy()
+    ro.flags.writeable = False   # CAS views are read-only
+    out = ops.dequant_apply(ro, q, backend="ref", out_dtype="float16")
+    assert isinstance(out, np.ndarray) and out.dtype == np.float16
+    np.testing.assert_array_equal(
+        out, np.asarray(ref_ops.dequant_apply(p1, q, backend="ref",
+                                              out_dtype="float16")))
+    with pytest.raises(NotImplementedError, match="bf16 storage path"):
+        ops.dequant_apply(p1, q, backend="ref", out_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("wrapper, args", [
+    (delta_quantize_flat, ("f32", "f32")),
+    (dequant_apply_flat, ("f32", "i32")),
+    (snapshot_fused_flat, ("f32", "f32")),
+    (chain_apply_flat, ("f32", "stack")),
+], ids=lambda v: getattr(v, "__name__", ""))
+def test_wrappers_run_plain_version_on_cpu_only(wrapper, args):
+    rng = np.random.default_rng(5)
+    make = {
+        "f32": lambda: torch.from_numpy(rng.normal(size=(257, 33))
+                                        .astype(np.float32)),
+        "i32": lambda: torch.from_numpy(rng.integers(-9, 9, size=(257, 33))
+                                        .astype(np.int32)),
+        "stack": lambda: torch.from_numpy(
+            rng.integers(-9, 9, size=(2, 257, 33)).astype(np.int32)),
+    }
+    tensors = [make[a]() for a in args]
+    before = wrapper.launches
+    got = wrapper(*tensors)
+    plain = {delta_quantize_flat: ref.delta_quantize_ref,
+             snapshot_fused_flat: ref.snapshot_fused_ref,
+             chain_apply_flat: ref.chain_apply_ref,
+             dequant_apply_flat: ref.dequant_apply_ref}[wrapper](*tensors)
+    for g, p in zip(got if isinstance(got, tuple) else (got,),
+                    plain if isinstance(plain, tuple) else (plain,)):
+        assert torch.equal(g, p)
+    assert wrapper.launches == before   # the plain version is no launch
+    # a tensor on any other device never reaches the plain version
+    meta = [t.to("meta") for t in tensors]
+    with pytest.raises(ValueError, match="CUDA device"):
+        wrapper(*meta)
+
+
+def test_default_backend_raises_without_card():
+    assert not torch.cuda.is_available()
+    x = np.ones(8, np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.default_backend()
+    for call in (lambda: ops.delta_quantize(x, x),
+                 lambda: ops.dequant_apply(x, x.astype(np.int32)),
+                 lambda: ops.chain_apply(x, [x.astype(np.int32)]),
+                 lambda: ops.snapshot_fused(x, x, with_fingerprint=False),
+                 lambda: ops.fingerprint(x)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with pytest.raises(NotImplementedError, match="fingerprint_2d"):
+        ops.fingerprint(x, backend="cuda")
+    with pytest.raises(ValueError, match="unknown backend"):
+        ops.delta_quantize(x, x, backend="interpret")
+
+
+def test_cuda_sources_match_their_ctypes_bindings():
+    """Every C entry point has the argument count its ctypes binding
+    declares (plus device and stream), and every source names the TPU
+    kernel it replaces."""
+    replaced = {"delta_quantize": ["delta_quantize_2d", "dequant_apply_2d"],
+                "snapshot_fused": ["snapshot_fused_2d"],
+                "chain_apply": ["chain_apply_2d"]}
+    for name in build.SOURCES:
+        text = (build.CSRC / f"{name}.cu").read_text()
+        found = {m.group(1): len(m.group(2).split(","))
+                 for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)',
+                                      text)}
+        assert found == {fn: len(args)
+                         for fn, args in build.SIGNATURES[name].items()}
+        for kernel in replaced[name]:
+            assert f"repro/kernels/{name}.py::{kernel}" in text
+        assert "#include \"common.cuh\"" in text
+    common = (build.CSRC / "common.cuh").read_text()
+    assert "__fdiv_rn" in common and "__fmul_rn" in common
+
+
+def test_build_needs_nvcc_and_keys_libraries_by_source(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc()
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "out"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build(["chain_apply"])
+    before = build.library_path("chain_apply")
+    assert before.parent == tmp_path / "out"
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in build.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert build.library_path("chain_apply") == before
+    (csrc / "chain_apply.cu").write_text(
+        (csrc / "chain_apply.cu").read_text() + "\n// edited\n")
+    assert build.library_path("chain_apply") != before
