@@ -22,10 +22,25 @@ exits non-zero on failure:
    weights within the quantization bound, a clean ``fsck``, and at least
    one launch of every kernel in that run;
 5. the same lineage with the default chunk threshold, whose large tensors
-   take the host chunk engine: bit-identical checkouts and a clean fsck.
+   take the host chunk engine: bit-identical checkouts and a clean fsck;
+6. continuous checkpointing: ``Trainer`` trains full-width paper-bert (f32,
+   batch 8, sequence 128) on the card with its default exact-tier
+   ``CheckpointManager`` committing every 2 steps: 6 steps in runs of 2
+   (each waits for its commit: 3 commits), then one ``run(6)``, whose
+   saves come faster than the commits, so at least one coalesces. It
+   saves the unchanged state once more (every leaf of 64 KiB or more must
+   be skipped by its fingerprint) and restores the last commit bit for
+   bit onto the card in a fresh manager (``verify=True``, clean fsck).
+   Then it runs the lossy tier (keyframe every 2 commits) through a store
+   with the chunk engine off, and restores a lossy step within each
+   leaf's quantization step of the live state. The fingerprint kernel
+   must launch once per large leaf per save, and dequant_apply in the
+   lossy commits.
 
-The line before last is one JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+Phases 4 and 6 each zero every kernel's launch count just before they
+drive their path and read it just after. The line before last is one
+JSON object describing each kernel; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -33,6 +48,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -184,13 +200,59 @@ def check_kernels(gen):
         hold("chain_apply", label, chained, chained_p,
              torch.from_numpy(host_dequant(h1, qsum, EPS)))
     torch.cuda.synchronize()
+    errs["fingerprint"] = check_fingerprint(gen, bad)
     for line in bad:
         print(f"MISMATCH {line}", flush=True)
     if bad:
         fail(f"{len(bad)} kernel checks failed")
-    print("kernels: all four equal their plain versions and numpy twins bit "
-          "for bit", flush=True)
+    print("kernels: all five equal their plain versions (and the storage "
+          "kernels their numpy twins) bit for bit", flush=True)
     return errs
+
+
+def fingerprint_cases(gen):
+    """(label, tensor) on the card: the checkpoint's largest leaves, a
+    ragged length, the 16-bit float types, int32, and f64 (cast to f32)."""
+    import torch
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    return [("(12, 768, 3072) f32", randn((12, 768, 3072))),
+            ("(30522, 768) f32", randn((30522, 768))),
+            ("(1000003,) f32", randn((1000003,))),
+            ("(4097, 33) bf16", randn((4097, 33), torch.bfloat16)),
+            ("(4097, 33) f16", randn((4097, 33), torch.float16)),
+            ("(100003,) int32", torch.randint(
+                -2**31, 2**31 - 1, (100003,), generator=gen, device="cuda",
+                dtype=torch.int32)),
+            ("(300007,) f64", randn((300007,), torch.float64))]
+
+
+def check_fingerprint(gen, bad):
+    """The kernel's raw (h1, h2) pair against its plain version's, and
+    ``ops``' salted fingerprint (alone and from ``snapshot_fused``) on the
+    card against the host's."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fingerprint import fingerprint_flat
+
+    err = 0.0
+    for label, x in fingerprint_cases(gen):
+        got = fingerprint_flat(x).cpu()
+        plain = ref.fingerprint_padded(x).cpu()
+        err = max(err, max_abs(got, plain))
+        if got.tolist() != plain.tolist():
+            bad.append(f"fingerprint {label}: {got.tolist()} vs plain "
+                       f"{plain.tolist()}")
+    p2 = torch.randn((257, 33), generator=gen, device="cuda")
+    p1 = p2 + torch.randn((257, 33), generator=gen, device="cuda") * 1e-4
+    host = ops.fingerprint(p2.cpu(), backend="ref")
+    if (ops.fingerprint(p2) != host
+            or ops.snapshot_fused(p1, p2, EPS)[2] != host):
+        bad.append("fingerprint: ops on the card differs from the host")
+    return err
 
 
 def time_kernels(gen):
@@ -202,6 +264,7 @@ def time_kernels(gen):
     from repro_torch.kernels.chain_apply import chain_apply_flat
     from repro_torch.kernels.delta_quantize import (delta_quantize_flat,
                                                     dequant_apply_flat)
+    from repro_torch.kernels.fingerprint import fingerprint_flat
     from repro_torch.kernels.snapshot_fused import snapshot_fused_flat
 
     def pair(shape, scale):
@@ -230,6 +293,13 @@ def time_kernels(gen):
             lambda: chain_apply_flat(w1, qs3, EPS),
             lambda: ref.chain_apply_ref(w1, qs3, EPS),
             (8 + 4 * 3) * n_w, 2 * n_w, "(12, 768, 3072) f32 + 3 x int32"),
+        # reads 4 B per element, writes 16 B; 12 integer operations per
+        # element (4 multiplies, 2 shifts, 3 xors, 3 adds), counted
+        # against the f32 rate, the table's only non-tensor-core peak
+        "fingerprint": (
+            lambda: fingerprint_flat(w2),
+            lambda: ref.fingerprint_padded(w2),
+            4 * n_w + 16, 12 * n_w, "(12, 768, 3072) f32"),
     }
     out = {}
     for name, (kernel, plain, nbytes, flops, shape) in rows.items():
@@ -358,11 +428,22 @@ def wrappers():
     from repro_torch.kernels.chain_apply import chain_apply_flat
     from repro_torch.kernels.delta_quantize import (delta_quantize_flat,
                                                     dequant_apply_flat)
+    from repro_torch.kernels.fingerprint import fingerprint_flat
     from repro_torch.kernels.snapshot_fused import snapshot_fused_flat
     return {"snapshot_fused": snapshot_fused_flat,
             "delta_quantize": delta_quantize_flat,
             "dequant_apply": dequant_apply_flat,
-            "chain_apply": chain_apply_flat}
+            "chain_apply": chain_apply_flat,
+            "fingerprint": fingerprint_flat}
+
+
+def zero_launches():
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def read_launches():
+    return {k: w.launches for k, w in wrappers().items()}
 
 
 def main_path(cfg, params, workdir, card):
@@ -370,9 +451,7 @@ def main_path(cfg, params, workdir, card):
     import torch
 
     root = os.path.join(workdir, "whole")
-    counted = wrappers()
-    for w in counted.values():
-        w.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     store = commit_lineage(root, cfg.name, params, chunk_threshold=0)
     torch.cuda.synchronize()
@@ -380,14 +459,15 @@ def main_path(cfg, params, workdir, card):
     store2, refs, out = check_out(root, CHECKOUT, chunk_threshold=0)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {k: w.launches for k, w in counted.items()}
+    launches = read_launches()
     print(f"main path: commit {t1 - t0:.3f} s, checkout of "
           f"{'+'.join(CHECKOUT)} {t2 - t1:.3f} s, compression ratio "
           f"{store.compression_ratio():.3f}, launches {json.dumps(launches)} "
           f"({card})", flush=True)
     _, _, host = check_out(root, CHECKOUT, chunk_threshold=0, backend="ref")
     verify("main path", store2, refs, out, params, reference=host)
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k, n in launches.items()
+               if n == 0 and k != "fingerprint"]
     if missing:
         fail(f"main path launched no {', '.join(missing)} kernel")
     return launches
@@ -411,6 +491,252 @@ def chunked_path(cfg, params, workdir):
         fail("chunked path: no tensor took the chunk engine")
     _, _, host = check_out(root, CHECKOUT, backend="ref")
     verify("chunked path", store2, refs, out, params, reference=host)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: continuous checkpointing of a training run
+# ---------------------------------------------------------------------------
+
+BIG_LEAVES = 24          # 8 parameters of 64 KiB or more x params, mu, nu
+
+
+def _span_seconds(name):
+    from repro_torch.obs import export_chrome_trace
+    return [e["dur"] / 1e6 for e in export_chrome_trace()["traceEvents"]
+            if e.get("name") == name and e.get("ph") == "X"]
+
+
+def _commit_bytes(store, refs):
+    """Bytes each commit added to the CAS: the objects of its manifest
+    closure that no earlier commit's closure holds."""
+    seen, out = set(), []
+    for ref in refs:
+        keys = set(store.expected_refcounts([ref]))
+        out.append(sum(store.cas.size(k) for k in keys - seen))
+        seen |= keys
+    return out
+
+
+def _step_refs(cm):
+    return [cm.lineage.nodes[cm._node_name(s)].artifact_ref
+            for s in sorted(cm._steps())]
+
+
+def _fsck(label, cm):
+    report = cm.store.fsck(_step_refs(cm))
+    if not report["ok"]:
+        fail(f"{label}: fsck is not clean: "
+             f"{ {k: report[k] for k in ('corrupt', 'missing_objects', 'refcount_drift')} }")
+
+
+def _overhead(tier):
+    from repro_torch.store import CKPT_OVERHEAD
+    _, total, count = CKPT_OVERHEAD[tier].snapshot()
+    return total, count
+
+
+def _within_grid(label, cm, step, restored, live):
+    """Every leaf of ``restored`` (a state on the card) within one
+    quantization step of the host flat ``live``; nu leaves committed in
+    the log domain are compared there. Returns the largest error over the
+    step of its leaf's grid."""
+    import numpy as np
+
+    from repro_torch.kernels.ref import quant_scale
+    from repro_torch.store import flatten_state
+
+    manifest = cm.store.get_manifest(
+        cm.lineage.nodes[cm._node_name(step)].artifact_ref)
+    transforms = manifest["metadata"].get("transforms", {})
+    flat = flatten_state(restored)
+    worst = 0.0
+    for key, value in live.items():
+        got = flat[key]
+        if got.dtype != value.dtype or got.shape != value.shape:
+            fail(f"{label}: {key} restored as {got.dtype}{got.shape}")
+        if value.dtype != np.float32:
+            if got.tobytes() != value.tobytes():
+                fail(f"{label}: {key} differs from the live state")
+            continue
+        a, b = got.astype(np.float64), value.astype(np.float64)
+        if transforms.get(key) == "log1p":
+            a, b = np.log1p(a), np.log1p(b)
+        entry = manifest["params"][key]
+        grid = quant_scale(entry.get("eps", cm.store.eps))
+        err = float(np.abs(a - b).max()) / grid
+        worst = max(worst, err)
+        if not np.isfinite(a).all() or err > 1.0:
+            fail(f"{label}: {key} is {err} quantization steps from the "
+                 f"live state")
+    return worst
+
+
+def whole_tensor_store(root):
+    """The checkpoint manager's store with the chunk engine off: every
+    leaf commits as a whole-tensor step delta (xdelta in the exact tier, an
+    int8 delta whose truth the dequant kernel computes in the lossy tier).
+    With the default 8 MiB threshold the large leaves go through the host
+    chunk engine, which never reaches the dequant kernel."""
+    from repro_torch.store import ArtifactStore
+    return ArtifactStore(root=root, t_thr=float("inf"), chunk_threshold=0)
+
+
+def train(tr, steps, every=2):
+    """``steps`` steps in runs of ``every``, moving ``tr.start_step`` on
+    after each. A run ends by waiting for its commit, so no save coalesces
+    into the next. Returns the runs' history."""
+    hist = {"loss": [], "step_time": []}
+    for _ in range(steps // every):
+        for k, v in tr.run(every).items():
+            hist[k] += v
+        tr.start_step += every
+    return hist
+
+
+def checkpoint_path(cfg, workdir, card, seed):
+    """Phase 6. Returns the launch counts of its run."""
+    import torch
+
+    from repro_torch.common.tree import leaves
+    from repro_torch.obs import reset_trace, tracing
+    from repro_torch.store import CKPT_STATS, CheckpointManager, flatten_state
+    from repro_torch.train import Trainer
+
+    fp = wrappers()["fingerprint"]
+    zero_launches()
+    stats0 = CKPT_STATS.snapshot()
+    over0 = _overhead("exact")
+    root = os.path.join(workdir, "ckpt-exact")
+    with tracing():
+        reset_trace()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, batch=8, seq=128, checkpoint_dir=root,
+                     commit_every=2, seed=seed)
+        t1 = time.perf_counter()
+        hist = train(tr, 6)         # commits at steps 2, 4 and 6
+        t2 = time.perf_counter()
+        if fp.launches != 3 * BIG_LEAVES:
+            fail(f"checkpoint: {fp.launches} fingerprint launches in 3 saves "
+                 f"(expected {BIG_LEAVES} per save)")
+        # one run of 6 steps, as a user calls it: the saves at 8, 10 and 12
+        # come faster than the commits, so the pending one coalesces
+        coalesced0 = int(CKPT_STATS["coalesced"])
+        more = tr.run(6)
+        t3 = time.perf_counter()
+        coalesced = int(CKPT_STATS["coalesced"]) - coalesced0
+        steps = sorted(tr.ckpt._steps())
+        if (coalesced < 1 or len(steps) != 6 - coalesced or steps[-1] != 12
+                or fp.launches != 6 * BIG_LEAVES):
+            fail(f"checkpoint: run(6) committed steps {steps} with "
+                 f"{coalesced} coalesced saves and {fp.launches} fingerprint "
+                 f"launches in 6 saves (expected at least one coalesced "
+                 f"save, the last commit at 12 and {BIG_LEAVES} launches "
+                 f"per save)")
+        skipped0 = int(CKPT_STATS["leaves_skipped"])
+        tr.ckpt.save(13, tr.state)  # unchanged state: every big leaf skips
+        tr.ckpt.wait()
+        skipped = int(CKPT_STATS["leaves_skipped"]) - skipped0
+        commit_s = _span_seconds("ckpt.commit")
+        snapshot_s = _span_seconds("ckpt.snapshot")
+    if fp.launches != 7 * BIG_LEAVES or skipped != BIG_LEAVES:
+        fail(f"checkpoint: unchanged save skipped {skipped} leaves with "
+             f"{fp.launches} fingerprint launches in 7 saves (expected "
+             f"{BIG_LEAVES} skipped and {BIG_LEAVES} launches per save)")
+    if tr.elastic.restarts:
+        fail(f"checkpoint: the straggler policy restarted the run: "
+             f"{tr.elastic.restarts}")
+    total, count = _overhead("exact")
+    state_bytes = sum(v.numel() * v.element_size()
+                      for v in leaves(tr.state))
+    print(f"checkpoint: {cfg.name} f32 state of {state_bytes} bytes, trainer "
+          f"built in {t1 - t0:.3f} s, 6 steps + 3 commits in {t2 - t1:.3f} s, "
+          f"run(6) + its commits in {t3 - t2:.3f} s with {coalesced} "
+          f"coalesced save(s), committed steps {steps} ({card})", flush=True)
+    print(f"checkpoint: loss per step {json.dumps(hist['loss'] + more['loss'])}",
+          flush=True)
+    print(f"checkpoint: seconds per step "
+          f"{json.dumps(hist['step_time'] + more['step_time'])}", flush=True)
+    print(f"checkpoint: save-side blocking {total - over0[0]:.6f} s over "
+          f"{count - over0[1]} saves; snapshot spans {json.dumps(snapshot_s)}",
+          flush=True)
+    print(f"checkpoint: seconds per commit {json.dumps(commit_s)}; stored "
+          f"bytes per commit "
+          f"{json.dumps(_commit_bytes(tr.ckpt.store, _step_refs(tr.ckpt)))}",
+          flush=True)
+    if not all(map(math.isfinite, hist["loss"] + more["loss"])):
+        fail("checkpoint: the loss is not finite")
+
+    # a fresh manager restores the last commit bit for bit onto the card
+    t0 = time.perf_counter()
+    cm = CheckpointManager(root, model_name=cfg.name)
+    restored, step = cm.restore(verify=True, template=tr.state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    live = flatten_state(tr.state)
+    for leaf in leaves(restored):
+        if leaf.device != tr.device:
+            fail(f"checkpoint: a restored leaf lies on {leaf.device}")
+    got = flatten_state(restored)
+    if step != 13 or list(got) != list(live) or any(
+            got[k].dtype != v.dtype or got[k].tobytes() != v.tobytes()
+            for k, v in live.items()):
+        fail(f"checkpoint: the restore of step {step} is not the live state "
+             f"bit for bit")
+    _fsck("checkpoint", cm)
+    print(f"checkpoint: restore (verify=True) of step {step} in "
+          f"{restore_s:.3f} s, bit-identical on {tr.device}, fsck clean",
+          flush=True)
+    exact_launches = read_launches()
+    del restored, got, cm
+
+    # the lossy tier, through a whole-tensor store: keyframe, lossy commit,
+    # keyframe
+    lossy_over0 = _overhead("lossy")
+    root = os.path.join(workdir, "ckpt-lossy")
+    trl = Trainer(cfg, batch=8, seq=128, checkpoint_dir=root, commit_every=2,
+                  seed=seed, lossy_tier=True, keyframe_every=2)
+    trl.ckpt = CheckpointManager(root, model_name=cfg.name, tier="lossy",
+                                 keyframe_every=2,
+                                 store=whole_tensor_store(root))
+    t0 = time.perf_counter()
+    train(trl, 4)
+    live4 = flatten_state(trl.state)
+    train(trl, 2)
+    t1 = time.perf_counter()
+    if wrappers()["dequant_apply"].launches == exact_launches["dequant_apply"]:
+        fail("checkpoint: the lossy commits launched no dequant_apply")
+    cml = CheckpointManager(root, model_name=cfg.name, tier="lossy",
+                            keyframe_every=2)
+    lossy = [bool(cml.store.get_manifest(r)["metadata"].get("lossy"))
+             for r in _step_refs(cml)]
+    if lossy != [False, True, False]:
+        fail(f"checkpoint: lossy flags of the three commits are {lossy}")
+    state4, step = cml.restore(step=4, template=trl.state, allow_lossy=True)
+    err4 = _within_grid("checkpoint lossy step 4", cml, 4, state4, live4)
+    del state4
+    _, back = cml.restore(step=4, template=trl.state)
+    if back != 2:
+        fail(f"checkpoint: restore of lossy step 4 resolved to {back}, not "
+             f"the keyframe at 2")
+    state6, step = cml.restore(template=trl.state, allow_lossy=True)
+    err6 = _within_grid("checkpoint lossy step 6", cml, 6, state6,
+                        flatten_state(trl.state))
+    _fsck("checkpoint lossy", cml)
+    total, count = _overhead("lossy")
+    print(f"checkpoint lossy: 6 steps + 3 commits in {t1 - t0:.3f} s, "
+          f"save-side blocking {total - lossy_over0[0]:.6f} s over "
+          f"{count - lossy_over0[1]} saves, stored bytes per commit "
+          f"{json.dumps(_commit_bytes(cml.store, _step_refs(cml)))}; "
+          f"restore of lossy step 4 within {err4:.4f} and of keyframe 6 "
+          f"within {err6:.4f} quantization steps of the live state, fsck "
+          f"clean", flush=True)
+    if fp.launches != 10 * BIG_LEAVES:
+        fail(f"checkpoint: {fp.launches} fingerprint launches in 10 saves")
+    launches = read_launches()
+    stats = {k: v - stats0.get(k, 0) for k, v in CKPT_STATS.snapshot().items()}
+    print(f"checkpoint: CKPT_STATS {json.dumps(stats)}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -458,8 +784,11 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="chip-smoke-",
                                dir=os.path.join(ROOT, "build"))
     try:
-        launches = main_path(cfg, params, workdir, card)
+        launches = {"lineage": main_path(cfg, params, workdir, card)}
         chunked_path(cfg, params, workdir)
+        del params
+        launches["checkpoint"] = checkpoint_path(cfg, workdir, card,
+                                                 args.seed)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -472,13 +801,17 @@ def main() -> int:
                           "src/repro/kernels/delta_quantize.py:86"),
         "chain_apply": ("chain_apply.cu",
                         "src/repro/kernels/chain_apply.py:60"),
+        "fingerprint": ("fingerprint.cu",
+                        "src/repro/kernels/fingerprint.py:57"),
     }
     kernels = []
     for name, (source, where) in replaces.items():
         t = timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"{SRC}/{source}",
-            "replaces": where, "launches": launches[name],
+            "replaces": where,
+            "launches": sum(path[name] for path in launches.values()),
+            "launches_by_path": {p: n[name] for p, n in launches.items()},
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
@@ -486,7 +819,8 @@ def main() -> int:
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']:.4f} ms at {k['shape']} "
               f"(bound {k['bound_ms']:.4f} ms, plain {k['plain_ms']:.4f} ms), "
-              f"{k['launches']} launches on the main path", flush=True)
+              f"{k['launches']} launches on the main paths "
+              f"{json.dumps(k['launches_by_path'])}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

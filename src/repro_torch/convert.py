@@ -11,6 +11,10 @@ packages.
 The store keeps parameters as numpy arrays, and numpy has no bfloat16
 here, so bf16 parameters raise ``NotImplementedError`` until the bf16
 storage path arrives.
+
+:func:`state_from_reference` turns a reference train state (nested dicts
+of arrays, the reference's ``OptState``, 0-dim step counters) into this
+package's, so both packages can be fed the same state.
 """
 
 from __future__ import annotations
@@ -20,9 +24,11 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.common.tree import is_namedtuple
 from repro_torch.core.artifact import ModelArtifact
 from repro_torch.kernels.build import BF16_ITEM
 from repro_torch.models.graph import state_graph
+from repro_torch.optim.adamw import OptState
 
 
 def to_numpy(value) -> np.ndarray:
@@ -38,7 +44,8 @@ def to_numpy(value) -> np.ndarray:
         raise NotImplementedError(
             f"bfloat16 parameters cannot be stored yet: ROADMAP item "
             f"'{BF16_ITEM}'")
-    return np.ascontiguousarray(arr)
+    # np.ascontiguousarray would turn a 0-dim array into a 1-D one
+    return arr if arr.flags.c_contiguous else np.ascontiguousarray(arr)
 
 
 def to_artifact(flat: Mapping[str, Any], model_type: str,
@@ -47,3 +54,24 @@ def to_artifact(flat: Mapping[str, Any], model_type: str,
     params = {k: to_numpy(v) for k, v in flat.items()}
     return ModelArtifact(state_graph(params, model_type), params,
                          model_type=model_type, metadata=dict(metadata or {}))
+
+
+def state_from_reference(state: Any, device="cpu") -> Any:
+    """The reference package's train state as this package's: dicts stay
+    dicts, an ``OptState`` (any NamedTuple with fields mu, nu, count)
+    becomes :class:`repro_torch.optim.OptState`, other NamedTuples, lists
+    and tuples keep their type, and every array becomes a tensor of the
+    same dtype and shape (0-dim included) on ``device``."""
+    if state is None:
+        return None
+    if isinstance(state, dict):
+        return {k: state_from_reference(v, device) for k, v in state.items()}
+    if is_namedtuple(state):
+        values = [state_from_reference(getattr(state, f), device)
+                  for f in state._fields]
+        if tuple(state._fields) == OptState._fields:
+            return OptState(*values)
+        return type(state)(*values)
+    if isinstance(state, (list, tuple)):
+        return type(state)(state_from_reference(v, device) for v in state)
+    return torch.from_numpy(np.array(to_numpy(state))).to(device)

@@ -1,17 +1,25 @@
-"""Parameter placement rules, as pure functions with no mesh.
+"""Parameter placement rules, as pure functions, on one device.
 
-Only what the store reads: :func:`param_spec`'s per-dimension placement of
-a parameter and :func:`shard_cuts`, the axis-0 shard boundaries the chunk
-layer aligns its grid to. A spec is a tuple with one entry per dimension:
-a mesh-axis name (``"data"``, ``"model"``) or None (replicated). Device
-placement itself arrives with the models and training slice.
+:func:`param_spec` gives the per-dimension placement of a parameter and
+:func:`shard_cuts` the axis-0 shard boundaries the chunk layer aligns its
+grid to. A spec is a tuple with one entry per dimension: a mesh-axis name
+(``"data"``, ``"model"``) or None (replicated). The port runs on one card
+with no mesh, so :func:`shard`, the model code's placement constraint, is
+the identity.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
 Spec = Tuple[Optional[str], ...]
+Entry = Union[None, str, Tuple[str, ...]]
+
+
+def shard(x: Any, *entries: Entry) -> Any:
+    """The reference's per-dimension sharding constraint; the identity on
+    one device."""
+    return x
 
 _NORM_LEAVES = ("norm", "scale", "bias", "gamma", "beta")
 

@@ -3,7 +3,8 @@
 - ``delta_quantize`` / ``dequant_apply``: Algorithm 1's lossy delta step.
 - ``snapshot_fused``: the commit's quantize + int8 narrowing in one pass.
 - ``chain_apply``: folded checkout of a same-eps delta chain.
-- ``fingerprint``: content-hash candidate detection (plain version only).
+- ``fingerprint``: the checkpoint's content fingerprint of a device tensor,
+  hashed in place (8 bytes cross to the host).
 
 ``ops`` dispatches to the CUDA kernels (``"cuda"``, the default) or to the
 plain torch versions on the CPU (``"ref"``). Kernels build at first use

@@ -27,7 +27,7 @@ from typing import Dict, Sequence
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("delta_quantize", "snapshot_fused", "chain_apply")
+SOURCES = ("delta_quantize", "snapshot_fused", "chain_apply", "fingerprint")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,6 +45,9 @@ SIGNATURES = {
     },
     "chain_apply": {
         "mgit_chain_apply": (_P, _P, _P, _I64, _I32, _F32, _I32, _P),
+    },
+    "fingerprint": {
+        "mgit_fingerprint": (_P, _I32, _I64, _I64, _P, _I32, _P),
     },
 }
 

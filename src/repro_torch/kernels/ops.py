@@ -15,8 +15,8 @@ Backends:
 
 The reference pads every tensor to (rows, 1024) TPU tiles; the CUDA kernels
 work on flat tensors with a masked tail, so zero counts need no padding
-correction. ``fingerprint`` keeps the reference's padded layout, because
-its hash depends on it.
+correction. ``fingerprint`` hashes the reference's padded extent, because
+its hash depends on it, but its kernel never materializes the padding.
 """
 
 from __future__ import annotations
@@ -31,10 +31,9 @@ from repro_torch.kernels.build import BF16_ITEM
 from repro_torch.kernels.chain_apply import chain_apply_flat
 from repro_torch.kernels.delta_quantize import (delta_quantize_flat,
                                                 dequant_apply_flat)
+from repro_torch.kernels.fingerprint import fingerprint_flat
 from repro_torch.kernels.snapshot_fused import snapshot_fused_flat
 
-LANE_COLS = 1024
-FINGERPRINT_ITEM = "fingerprint_2d (with the checkpointing slice)"
 _DEVICES = {"cuda": "cuda", "ref": "cpu"}
 
 
@@ -50,10 +49,13 @@ def default_backend() -> str:
 def _device(backend: Optional[str]) -> torch.device:
     backend = backend or default_backend()
     try:
-        return torch.device(_DEVICES[backend])
+        dev = torch.device(_DEVICES[backend])
     except KeyError:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{sorted(_DEVICES)}") from None
+    if dev.type == "cuda":
+        default_backend()   # raises when there is no card
+    return dev
 
 
 def _to(x, device: torch.device) -> torch.Tensor:
@@ -134,9 +136,10 @@ def snapshot_fused(p1, p2, eps: float = 1e-4, backend: Optional[str] = None,
     keys objects by SHA-256 and never reads it.
     """
     dev = _device(backend)
-    fp = fingerprint(p2, backend=backend) if with_fingerprint else None
+    t2 = _to(p2, dev)
+    fp = fingerprint(t2, backend=backend) if with_fingerprint else None
     a = _to(p1, dev).to(torch.float32)
-    b = _to(p2, dev).to(torch.float32)
+    b = t2.to(torch.float32)
     q8, zeros, overflow = snapshot_fused_flat(a, b, eps)
     if int(overflow) > 0:
         q, nz = delta_quantize_flat(a, b, eps)
@@ -152,22 +155,11 @@ def fingerprint(x, backend: Optional[str] = None) -> int:
     """64-bit content fingerprint (python int). Includes shape/dtype salt so
     reshaped or recast tensors don't alias (mirrors SHA-256 keying in the CAS).
 
-    Only the plain version exists: on the card this raises until the
-    fingerprint kernel is ported."""
-    dev = _device(backend)
-    if dev.type != "cpu" or (isinstance(x, torch.Tensor) and x.is_cuda):
-        raise NotImplementedError(
-            f"ops.fingerprint has no CUDA kernel yet: ROADMAP item "
-            f"'{FINGERPRINT_ITEM}'")
-    t = _to(x, dev)
-    # the reference hashes the bits zero-padded to (rows, 1024), rows % 8 == 0
-    bits = _ref.bits_u32(t)
-    rows = -(-bits.shape[0] // LANE_COLS)
-    rows = -(-rows // 8) * 8
-    padded = torch.zeros(rows * LANE_COLS, dtype=torch.int64)
-    padded[:bits.shape[0]] = bits
-    pair = _ref.fingerprint_bits(padded)
-    h1, h2 = int(pair[0]), int(pair[1])
+    A tensor already on the backend's device is hashed where it lies; only
+    the (h1, h2) pair comes back to the host. The salt is Python's
+    ``hash`` of a tuple, so compare fingerprints within one process only."""
+    t = _to(x, _device(backend))
+    h1, h2 = fingerprint_flat(t).tolist()
     salt = hash((tuple(t.shape), _ref.dtype_name(t.dtype))) & 0xFFFFFFFF
     return ((h1 ^ salt) << 32) | h2
 

@@ -143,3 +143,24 @@ def fingerprint_bits(bits: torch.Tensor) -> torch.Tensor:
     idx = torch.arange(bits.shape[0], dtype=torch.int64, device=bits.device)
     h1, h2 = _mix(bits, idx)
     return torch.stack([h1.sum() & _M32, h2.sum() & _M32])
+
+
+LANE_COLS = 1024
+
+
+def padded_length(n: int) -> int:
+    """The element count the reference hashes for an ``n``-element tensor:
+    its bits zero-padded to (rows, 1024) with rows a multiple of 8."""
+    rows = -(-n // LANE_COLS)
+    return -(-rows // 8) * 8 * LANE_COLS
+
+
+def fingerprint_padded(x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``ops.fingerprint`` pair, unsalted: ``fingerprint_ref``
+    of ``x``'s bits zero-padded to :func:`padded_length`. Padding elements
+    have bits 0 but a non-zero index, so they still add to the hash."""
+    bits = bits_u32(x)
+    padded = torch.zeros(padded_length(bits.shape[0]), dtype=torch.int64,
+                         device=bits.device)
+    padded[:bits.shape[0]] = bits
+    return fingerprint_bits(padded)

@@ -1,0 +1,187 @@
+"""Shared layer numerics of the dense family: norms, RoPE, attention, MLP.
+
+The math is the reference package's ``repro/models/layers.py``, in plain
+torch ops: the reference runs no Pallas kernel in its model (attention is
+its XLA chunked path), so none is needed here. Conventions kept from it:
+
+* ``rmsnorm`` scales by ``1 + w`` (weights initialise to zero);
+* ``rope`` rotates the two halves of the head dimension, not interleaved
+  pairs;
+* attention scales ``q`` before the product and runs the same double-
+  chunked online softmax as ``chunked_attention``, over blocks of
+  ``cfg.attn_chunk`` queries and keys;
+* the GELU MLP uses the tanh approximation, ``jax.nn.gelu``'s default.
+
+Decode attention (against a cache), cross-attention, MoE and SSM layers
+arrive with their families.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.dist.sharding import shard
+from repro_torch.models.config import ModelConfig
+
+NEG_INF = -1e30
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + w.to(torch.float32))).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (S,) or (B, S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    exponent = torch.arange(0, half, dtype=torch.float32,
+                            device=x.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                         device=x.device), exponent)
+    angles = positions[..., None].to(torch.float32) * freqs  # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]  # broadcast over heads
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, window: int,
+               prefix_len: int, causal: bool) -> torch.Tensor:
+    """(Sq, C) additive bias: 0 where attendable, NEG_INF elsewhere."""
+    q = q_pos[:, None]
+    k = kv_pos[None, :]
+    if causal:
+        ok = k <= q
+        if prefix_len > 0:  # prefix-LM: bidirectional over the prefix
+            ok = ok | (k < prefix_len)
+    else:
+        ok = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
+                        device=q_pos.device)
+    if window > 0:
+        ok = ok & (q - k < window)
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
+
+
+def _fit(n: int, c: int) -> int:
+    """The largest divisor of ``n`` that is at most ``c`` (exact tiling)."""
+    c = min(c, n)
+    while n % c:
+        c -= 1
+    return c
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      cfg: ModelConfig, *, causal: bool = True,
+                      q_offset: int = 0, kv_offset: int = 0,
+                      prefix_len: int = 0) -> torch.Tensor:
+    """Memory-efficient attention, the reference's online softmax.
+
+    q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd). Returns (B, Sq, Hq, hd).
+    Query blocks and KV blocks of ``cfg.attn_chunk`` (the largest divisor
+    at most that) are walked in loops; score tiles run in the model dtype
+    when it is bf16, and the softmax statistics and output accumulator in
+    f32."""
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = hd ** -0.5
+    qc = _fit(Sq, cfg.attn_chunk)
+    kc = _fit(Skv, cfg.attn_chunk)
+    n_q, n_k = Sq // qc, Skv // kc
+    cdt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    dev = q.device
+
+    q = q.reshape(B, n_q, qc, Hkv, G, hd).to(cdt) * torch.tensor(
+        scale, dtype=cdt, device=dev)
+    k = k.reshape(B, n_k, kc, Hkv, hd)
+    v = v.reshape(B, n_k, kc, Hkv, hd)
+
+    blocks = []
+    for qi in range(n_q):
+        q_blk = q[:, qi]                      # (B, qc, Hkv, G, hd)
+        q_pos = q_offset + qi * qc + torch.arange(qc, device=dev)
+        m = torch.full((B, qc, Hkv, G), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, qc, Hkv, G), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, qc, Hkv, G, hd), dtype=torch.float32,
+                          device=dev)
+        for ki in range(n_k):
+            k_blk = k[:, ki].to(cdt)
+            v_blk = v[:, ki].to(cdt)
+            kv_pos = kv_offset + ki * kc + torch.arange(kc, device=dev)
+            s = torch.einsum("bqhgd,bchd->bqhgc", q_blk, k_blk)
+            bias = _mask_bias(q_pos, kv_pos, cfg.window, prefix_len, causal)
+            s = s + bias[None, :, None, None, :].to(cdt)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1).to(torch.float32))
+            p = torch.exp(s.to(torch.float32) - m_new[..., None]).to(cdt)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + torch.sum(p, dim=-1, dtype=torch.float32)
+            # products of the cdt values, summed in f32 (the reference's
+            # preferred_element_type)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqhgc,bchd->bqhgd", p.to(torch.float32),
+                v_blk.to(torch.float32))
+            m = m_new
+        blocks.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.stack(blocks, dim=1)          # (B, n_q, qc, Hkv, G, hd)
+    return out.reshape(B, Sq, Hq, hd)
+
+
+def attention_layer(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
+                    positions: torch.Tensor, causal: bool = True,
+                    prefix_len: int = 0) -> torch.Tensor:
+    """Self-attention sublayer: proj -> rope -> attention -> out."""
+    B, S, D = x.shape
+    hd = cfg.resolved_head_dim
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    q = shard(torch.einsum("bsd,dh->bsh", x, p["wq"]),
+              ("pod", "data"), None, "model").reshape(B, S, Hq, hd)
+    k = shard(torch.einsum("bsd,dh->bsh", x, p["wk"]),
+              ("pod", "data"), None, "model").reshape(B, S, Hkv, hd)
+    v = shard(torch.einsum("bsd,dh->bsh", x, p["wv"]),
+              ("pod", "data"), None, "model").reshape(B, S, Hkv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    out = chunked_attention(q, k, v, cfg, causal=causal,
+                            prefix_len=prefix_len)
+    out = shard(out.reshape(B, S, Hq * hd), ("pod", "data"), None, "model")
+    out = torch.einsum("bsh,hd->bsd", out.to(x.dtype), p["wo"])
+    return shard(out, ("pod", "data"), None, None)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp(x: torch.Tensor, p: Dict, cfg: ModelConfig,
+        prefix: str = "w") -> torch.Tensor:
+    if cfg.mlp_type == "swiglu":
+        g = torch.einsum("bsd,df->bsf", x, p[f"{prefix}_gate"])
+        h = torch.einsum("bsd,df->bsf", x, p[f"{prefix}_in"])
+        h = F.silu(g) * h
+    else:
+        h = torch.einsum("bsd,df->bsf", x, p[f"{prefix}_in"])
+        h = F.gelu(h, approximate="tanh")
+    h = shard(h, ("pod", "data"), None, "model")
+    return torch.einsum("bsf,fd->bsd", h, p[f"{prefix}_out"])
+
+
+__all__ = ["NEG_INF", "rmsnorm", "rope", "chunked_attention",
+           "attention_layer", "mlp"]

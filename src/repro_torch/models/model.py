@@ -1,27 +1,41 @@
-"""Parameter templates and initialisation (dense family).
+"""Parameters, initialisation and the training forward pass (dense family).
 
 ``param_shapes`` gives the same flat ``{path: shape}`` as the reference
 package's ``repro/models/model.py::param_shapes`` for the dense family, and
 ``init_params`` draws the same distributions (``_init_one``'s scaling)
 from a ``torch.Generator``. The two packages' random streams differ, so
 tests that need equal weights make them with numpy and carry them across
-with ``repro_torch.convert``. The forward pass and the other families
-arrive with the models and training slice.
+with ``repro_torch.convert``.
+
+``forward`` is the reference's training forward for the dense family: the
+``lax.scan`` over stacked layer weights becomes a loop that indexes layer
+``i`` of every stacked leaf. The other families, prefill, decode and the
+decode cache raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import shard
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import attention_layer, mlp, rmsnorm
 
-MODELS_ITEM = "models and training slice"
+Params = Dict[str, Any]
+MODELS_ITEM = "other model families, decode, prefill and cache"
 _NORM_LEAVES = ("ln1", "ln2", "ln_cross", "final_norm", "enc_final_norm",
                 "norm", "q_norm", "k_norm")
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.n_experts:
+        raise NotImplementedError(
+            f"family {cfg.family!r}: only dense models are ported so far "
+            f"(ROADMAP item '{MODELS_ITEM}')")
 
 
 def _attn_shapes(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Tuple]:
@@ -49,10 +63,7 @@ def _mlp_shapes(cfg: ModelConfig, lead: Tuple[int, ...], prefix: str = "w"
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple]:
     """Flat {path: shape} for the whole model (dense family)."""
-    if cfg.family != "dense" or cfg.n_experts:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: only dense models are ported so far "
-            f"(ROADMAP item '{MODELS_ITEM}')")
+    _require_dense(cfg)
     L = cfg.n_layers
     shapes: Dict[str, Tuple] = {"embed/tok": (cfg.vocab_size, cfg.d_model)}
     for k, v in _attn_shapes(cfg, (L,)).items():
@@ -86,3 +97,99 @@ def init_params(cfg: ModelConfig, generator: torch.Generator
     drawn from ``generator`` on its device."""
     return {p: _init_one(p, s, cfg, generator)
             for p, s in sorted(param_shapes(cfg).items())}
+
+
+def _nested(flat: Dict[str, Any]) -> Params:
+    tree: Params = {}
+    for path, value in flat.items():
+        parts = path.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return tree
+
+
+def flat_paths(tree: Params, prefix: str = "") -> Dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(flat_paths(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Forward (training)
+# ---------------------------------------------------------------------------
+
+def _dense_block(x, lp, cfg: ModelConfig, positions, prefix_len,
+                 causal=True):
+    """One dense decoder layer."""
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    x = x + attention_layer(h, lp["attn"], cfg, positions=positions,
+                            causal=causal, prefix_len=prefix_len)
+    h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    return x + mlp(h, lp["mlp"], cfg)
+
+
+def _layer(tree: Params, i: int) -> Params:
+    """Layer ``i``'s weights: index ``i`` of every stacked leaf."""
+    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
+
+
+def _run_stack(x, layers_params, cfg: ModelConfig, positions, *,
+               prefix_len: int = 0, causal: bool = True):
+    """The reference's scan over stacked layers, as a loop.
+
+    ``cfg.remat`` does not change the numbers, so activations are kept."""
+    n = next(iter(flat_paths(layers_params).values())).shape[0]
+    for i in range(n):
+        x = _dense_block(x, _layer(layers_params, i), cfg, positions,
+                         prefix_len, causal=causal)
+    return x
+
+
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    x = params["embed"]["tok"][tokens]
+    x = x * torch.tensor(np.sqrt(cfg.d_model).astype(np.float32),
+                         device=x.device)
+    return shard(x, ("pod", "data"), None, None).to(torch_dtype(cfg.dtype))
+
+
+def _unembed(cfg: ModelConfig, params: Params, x: torch.Tensor
+             ) -> torch.Tensor:
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    head = (params["embed"]["tok"].T if cfg.tie_embeddings
+            else params["lm_head"])
+    logits = torch.einsum("bsd,dv->bsv", x, head)
+    return shard(logits, ("pod", "data"), None, "model")
+
+
+def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """Training forward -> logits (B, S, V) over the token stream.
+
+    ``params`` is the nested tree (``_nested(init_params(...))``)."""
+    _require_dense(cfg)
+    tokens = batch["tokens"]
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _run_stack(x, params["layers"], cfg, positions)
+    return _unembed(cfg, params, x)
+
+
+def prefill(*args, **kwargs):
+    raise NotImplementedError(
+        f"prefill and the decode cache wait for the ROADMAP item "
+        f"'{MODELS_ITEM}'")
+
+
+def decode_step(*args, **kwargs):
+    raise NotImplementedError(
+        f"decode_step and the decode cache wait for the ROADMAP item "
+        f"'{MODELS_ITEM}'")

@@ -1,0 +1,5 @@
+from repro_torch.optim.adamw import (AdamWConfig, OptState, global_norm, init,
+                                     schedule, state_regime, update)
+
+__all__ = ["AdamWConfig", "OptState", "global_norm", "init", "schedule",
+           "state_regime", "update"]

@@ -63,13 +63,15 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.common.hashing import TensorHasher, bytes_hash, tensor_hash
+from repro_torch.dist.compression import ef_eps
 from repro_torch.core.artifact import LazyParams, ModelArtifact, ParamRef
 from repro_torch.core.graphir import LayerGraph
 from repro_torch.kernels import ops
 from repro_torch.obs import REGISTRY, propagate, span
 from repro_torch.store import chunks as chunklib
 from repro_torch.store.cas import CAS, DEFAULT_PACK_THRESHOLD
-from repro_torch.store.codecs import bitpattern_apply, get_codec, pick_codec
+from repro_torch.store.codecs import (bitpattern_apply, bitpattern_delta,
+                                      get_codec, pick_codec)
 from repro_torch.store.delta import (CompressResult, ParamDelta, decode_q,
                                      decompress_param, delta_compression,
                                      host_dequant, host_snapshot,
@@ -313,7 +315,9 @@ class ArtifactStore:
                   "chain_hops", "plans_resolved", "dequant_calls",
                   "hops_folded", "fold_hits", "chunks_written",
                   "chunk_bytes_written", "chunks_deduped",
-                  "chunk_delta_blobs", "chunk_passthrough", "chunks_read"),
+                  "chunk_delta_blobs", "chunk_passthrough", "chunks_read",
+                  "step_commits", "step_leaves_copied", "step_leaves_delta",
+                  "step_leaves_xdelta", "step_leaves_full"),
             help="ArtifactStore I/O accounting")
         self._lock = threading.RLock()   # manifests dict + counters
         self._stats_path = (os.path.join(root, "store_stats.json")
@@ -595,7 +599,9 @@ class ArtifactStore:
         opens a new segment from the parent's value. Device-backend stores
         dequant through the same kernel checkout uses, so stored hashes
         always match what a later checkout reproduces. ``eps`` defaults to
-        the store's configured eps."""
+        the store's configured eps; the step-delta engine passes its
+        per-leaf adaptive eps (§15) so segment-extension decisions here
+        stay structurally identical to checkout's ``_is_segment_boundary``."""
         if eps is None:
             eps = self.eps
         if self.backend == "ref":
@@ -624,6 +630,267 @@ class ArtifactStore:
                                   q_open=q32, eps=eps)
             return dequant(state.seg_base, state.q_open, eps), state
         return dequant(parent_value, q32, eps, out_dtype=dtype), None
+
+    # -- step-delta commit engine (DESIGN.md §15) --------------------------------
+    def _full_step_entry(self, key: str, value: np.ndarray,
+                         parent_ref: Optional[str],
+                         parent_manifest: Optional[Dict[str, Any]],
+                         lossless: bool = True) -> Dict[str, Any]:
+        """Depth-0 entry for one step leaf: chunked above the threshold
+        (grid inheritance still dedups unchanged chunks; per-chunk
+        quantized deltas only in the lossy tier), else a raw full tensor."""
+        if self.chunk_threshold and value.nbytes >= self.chunk_threshold:
+            e = self._commit_chunked(key, chunklib.as_source(value),
+                                     parent_ref, parent_manifest,
+                                     lossless=lossless)
+            if e.get("parent_ref"):
+                e["d"] = int(parent_manifest.get("depth", 0)) + 1
+            return e
+        thash = tensor_hash(value)
+        self.cas.put_tensor(value, key=thash)
+        return {"kind": "full", "tensor": thash, "shape": list(value.shape),
+                "dtype": str(value.dtype), "hash": thash}
+
+    @staticmethod
+    def _copy_step_entry(pe: Dict[str, Any], parent_depth: int,
+                         copy_objs: List[str]) -> Dict[str, Any]:
+        """Verbatim re-reference of the parent's entry for an unchanged
+        leaf. The new manifest holds its OWN reference on every object the
+        entry owns (mirroring commit-time accounting), so ``copy_objs``
+        collects them for one batched incref."""
+        e = dict(pe)
+        kind = e["kind"]
+        if kind == "chunked":
+            for item in e["chunks"]:
+                k = item.get("c") or item.get("b")
+                if k:
+                    copy_objs.append(k)
+        else:
+            copy_objs.append(e["tensor"] if kind == "full" else e["blob"])
+        if kind != "full" and "d" not in e:
+            e["d"] = (parent_depth if (kind in ("delta", "xdelta")
+                                       or e.get("parent_ref")) else 0)
+        return e
+
+    @staticmethod
+    def _entry_nbytes(pe: Dict[str, Any]) -> int:
+        if pe["kind"] == "chunked":
+            return int(pe["nbytes"])
+        shape = pe.get("shape", ())
+        n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        return n * np.dtype(pe.get("dtype", "float32")).itemsize
+
+    def commit_step(self, name: str,
+                    flat: Dict[str, Optional[np.ndarray]],
+                    parent_ref: Optional[str] = None, *,
+                    skip: frozenset = frozenset(),
+                    tier: str = "exact",
+                    model_type: str = "model",
+                    metadata: Optional[Dict[str, Any]] = None,
+                    graph_json: Optional[str] = None,
+                    parent_hint: Optional[Dict[str, np.ndarray]] = None,
+                    step_codec: str = "zlib",
+                    flush: bool = True) -> str:
+        """Training-speed commit of one step's state (DESIGN.md §15).
+
+        ``flat`` maps leaf key -> host array; keys in ``skip`` (fingerprint-
+        unchanged since ``parent_ref``) may carry ``None`` and re-reference
+        the parent's entry verbatim — no host transfer, no encode, no new
+        object. Changed leaves store as:
+
+        * ``tier="exact"``: an ``xdelta`` entry — lossless bitpattern
+          subtraction vs the parent's committed truth, byte-plane + zlib-1
+          encoded. The child's stored truth IS the live value, so resume is
+          bit-identical.
+        * ``tier="lossy"``: an int8 ``delta`` entry with per-leaf adaptive
+          eps sized so the quantization grid matches the error-feedback
+          estimator's (``amax/127``, ``repro_torch.dist.compression``). Deltas
+          are taken against the parent's *committed* truth, so quantization
+          error never compounds along the chain (implicit error feedback:
+          each hop's error is bounded by half its own grid).
+
+        ``parent_hint`` (exact tier only) supplies the parent's committed
+        values without a cache probe — the caller's previous live flat is
+        exactly that, because exact-tier truth is the live value. Per-leaf
+        chain depth (entry field ``d``) is gated by ``max_chain_depth``;
+        overlong chains reset to full/chunked entries. A leaf whose bits
+        did not change (but was transferred anyway) also degenerates to a
+        verbatim copy."""
+        if tier not in ("exact", "lossy"):
+            raise ValueError(f"unknown commit tier {tier!r}")
+        parent_manifest = (self.get_manifest(parent_ref)
+                          if parent_ref is not None else None)
+        if parent_manifest is None:
+            skip = frozenset()
+        parent_depth = (int(parent_manifest.get("depth", 0))
+                        if parent_manifest else 0)
+        if graph_json is None:
+            if (parent_manifest is not None
+                    and set(flat) == set(parent_manifest["params"])):
+                graph_json = parent_manifest["graph"]
+            else:
+                raise ValueError(
+                    "commit_step needs graph_json when the leaf set differs "
+                    "from the parent manifest's")
+        cod_q = get_codec(step_codec, 1)  # level 1: hot-path default
+        xd = get_codec("xd")
+        entries: Dict[str, Any] = {}
+        truths: Dict[str, np.ndarray] = {}
+        states: Dict[str, FoldState] = {}
+        copy_objs: List[str] = []
+        counts = {"copied": 0, "delta": 0, "xdelta": 0, "full": 0}
+        logical = 0
+
+        with span("ckpt.delta", cat="ckpt", model=name, params=len(flat),
+                  skipped=len(skip)), self.cas.batch():
+            for key, value in flat.items():
+                pe = (parent_manifest["params"].get(key)
+                      if parent_manifest else None)
+                if key in skip and pe is not None:
+                    entries[key] = self._copy_step_entry(pe, parent_depth,
+                                                         copy_objs)
+                    counts["copied"] += 1
+                    logical += self._entry_nbytes(pe)
+                    continue
+                if value is None:
+                    raise ValueError(f"leaf {key!r} not in skip but has no "
+                                     f"value")
+                value = np.ascontiguousarray(value)
+                logical += int(value.nbytes)
+                pd = None
+                if (self.delta_enabled and pe is not None
+                        and pe["kind"] != "chunked"
+                        and tuple(pe.get("shape", ())) == value.shape
+                        and pe.get("dtype") == str(value.dtype)):
+                    pd = int(pe.get("d", parent_depth))
+                    if pd + 1 > self.max_chain_depth:
+                        pd = None  # per-leaf chain reset
+                if pd is None:
+                    entries[key] = self._full_step_entry(
+                        key, value, parent_ref, parent_manifest,
+                        lossless=tier != "lossy")
+                    counts["full"] += 1
+                    continue
+                pv = None
+                if parent_hint is not None:
+                    pv = parent_hint.get(key)
+                if pv is None:
+                    pv = self.cache.get((parent_ref, key))
+                if pv is None:
+                    pv = self.materialize_param(parent_ref, key)
+                pv = np.asarray(pv)
+                if pv.shape != value.shape or pv.dtype != value.dtype:
+                    entries[key] = self._full_step_entry(
+                        key, value, parent_ref, parent_manifest,
+                        lossless=tier != "lossy")
+                    counts["full"] += 1
+                    continue
+                if tier == "lossy" and value.dtype == np.float32:
+                    diff = np.subtract(pv, value, dtype=np.float32)
+                    amax = (float(np.max(np.abs(diff)))
+                            if diff.size else 0.0)
+                    if amax == 0.0:  # bit-identical to parent truth
+                        entries[key] = self._copy_step_entry(
+                            pe, parent_depth, copy_objs)
+                        counts["copied"] += 1
+                        continue
+                    # grid matched to the EF estimator: quant_scale(eps)
+                    # == amax/_Q_LEVELS, so q always narrows to int8
+                    eps = ef_eps(amax)
+                    q, nz, _narrow = host_snapshot(pv, value, eps)
+                    q32 = (q if q.dtype == np.int32
+                           else q.astype(np.int32))
+                    truth, state = self._commit_truth(
+                        parent_ref, key, pv, q32, "float32", eps=eps)
+                    truth = np.asarray(truth).reshape(value.shape)
+                    ccod = pick_codec(int(nz), q.size, cod_q)
+                    blob = ccod.encode(q)
+                    if len(blob) >= value.nbytes:
+                        entries[key] = self._full_step_entry(
+                            key, value, parent_ref, parent_manifest)
+                        counts["full"] += 1
+                        continue
+                    entries[key] = {
+                        "kind": "delta", "blob": self.cas.put_bytes(blob),
+                        "parent_ref": parent_ref, "parent_key": key,
+                        "codec": ccod.name, "eps": eps,
+                        "shape": list(value.shape), "dtype": "float32",
+                        "qdtype": str(q.dtype),
+                        "hash": tensor_hash(truth), "d": pd + 1}
+                    truths[key] = truth
+                    if state is not None:
+                        states[key] = state
+                    counts["delta"] += 1
+                else:
+                    d = bitpattern_delta(value, pv)
+                    if not d.any():  # same bits: re-reference, store nothing
+                        entries[key] = self._copy_step_entry(
+                            pe, parent_depth, copy_objs)
+                        counts["copied"] += 1
+                        continue
+                    blob = xd.encode(d)
+                    if len(blob) >= value.nbytes:
+                        entries[key] = self._full_step_entry(
+                            key, value, parent_ref, parent_manifest)
+                        counts["full"] += 1
+                        continue
+                    entries[key] = {
+                        "kind": "xdelta", "blob": self.cas.put_bytes(blob),
+                        "parent_ref": parent_ref, "parent_key": key,
+                        "codec": "xd", "shape": list(value.shape),
+                        "dtype": str(value.dtype), "qdtype": str(d.dtype),
+                        "hash": tensor_hash(value), "d": pd + 1}
+                    truths[key] = value
+                    counts["xdelta"] += 1
+
+            delta_parents = sorted({e["parent_ref"]
+                                    for e in entries.values()
+                                    if e.get("parent_ref")})
+            with self.cas.batched_refcounts():
+                for obj in copy_objs:
+                    self.cas.incref(obj)
+                for pref in delta_parents:
+                    self.cas.incref(pref)
+            depth = max((int(e.get("d", 0)) for e in entries.values()),
+                        default=0)
+            manifest = {
+                "name": name,
+                "model_type": model_type,
+                "metadata": metadata or {},
+                "graph": graph_json,
+                "params": entries,
+                "depth": depth,
+                "delta_parents": delta_parents,
+            }
+            payload = json.dumps(manifest, sort_keys=True,
+                                 default=str).encode()
+            ref = self.cas.put_bytes(payload, key="m_" + bytes_hash(payload))
+
+        with self._lock:
+            self._manifests[ref] = manifest
+            self.logical_bytes += logical
+            self.io_stats["step_commits"] += 1
+            self.io_stats["step_leaves_copied"] += counts["copied"]
+            self.io_stats["step_leaves_delta"] += counts["delta"]
+            self.io_stats["step_leaves_xdelta"] += counts["xdelta"]
+            self.io_stats["step_leaves_full"] += counts["full"]
+        self._persist_stats()
+        # seed this commit's truth so the NEXT step's parent lookups (and
+        # any checkout of this ref) are pure cache hits
+        for k, v in truths.items():
+            self.cache.put((ref, k), np.asarray(v))
+        for k, st in states.items():
+            self.fold_cache.put((ref, k), st)
+        if parent_ref is not None:
+            for k in skip:
+                if k in entries:
+                    v = self.cache.get((parent_ref, k))
+                    if v is not None:
+                        self.cache.put((ref, k), v)
+        if flush:
+            with span("commit.pack_fsync", cat="store"):
+                self.cas.flush()  # commit point: index + refcounts durable
+        return ref
 
     # -- chunk engine (DESIGN.md §12) --------------------------------------------
     def _chunk_candidates(self, artifact: ModelArtifact

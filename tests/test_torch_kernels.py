@@ -21,12 +21,14 @@ import torch
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as jref
 from repro.kernels.chain_apply import chain_apply_ref as jchain_apply_ref
+from repro.kernels.fingerprint import fingerprint_2d
 from repro.kernels.snapshot_fused import snapshot_fused_ref as jsnapshot_ref
 
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.chain_apply import chain_apply_flat
 from repro_torch.kernels.delta_quantize import (delta_quantize_flat,
                                                 dequant_apply_flat)
+from repro_torch.kernels.fingerprint import fingerprint_flat
 from repro_torch.kernels.snapshot_fused import snapshot_fused_flat
 
 SHAPES = [(8,), (100,), (128, 128), (257, 33), (1024,), (3, 5, 7),
@@ -134,6 +136,50 @@ def test_fingerprint_ref_raw_pair(shape, dtype):
     np.testing.assert_array_equal(pj, pt)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(256, 1024), (1000, 33)], ids=str)
+def test_fingerprint_interpret_kernel_matches_plain_version(shape, dtype):
+    """The reference's Pallas ``fingerprint_2d`` (interpret mode) over its
+    padded layout gives the raw pair the port's wrapper computes on the CPU
+    (its plain version), for a tile-aligned and a ragged tensor."""
+    _, _, xt, _ = _pair(shape, dtype, 1.0, seed=len(shape) * 23 + 9)
+    xj = jnp.asarray(xt.to(torch.float32).numpy()).astype(DTYPES[dtype][0])
+    bits, _ = ref_ops._bits_2d(xj)
+    pj = fingerprint_2d(bits, block_rows=ref_ops._block_rows(bits.shape[0]),
+                        interpret=True)
+    before = fingerprint_flat.launches
+    pt = fingerprint_flat(xt)
+    assert fingerprint_flat.launches == before
+    assert pt.dtype == torch.int64 and pt.shape == (2,)
+    np.testing.assert_array_equal(np.asarray(pj).astype(np.int64),
+                                  pt.numpy())
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES) + ["int32"])
+@pytest.mark.parametrize("shape", [(8,), (257, 33), (2048, 128)], ids=str)
+def test_fingerprint_cpu_path_unchanged(shape, dtype):
+    """``ops.fingerprint`` on the CPU still hashes the padded layout as
+    before the kernel existed, and equals the reference's 64-bit value
+    (the salt is Python's hash of the same tuple in this process)."""
+    rng = np.random.default_rng(len(shape) * 29 + 3)
+    if dtype == "int32":
+        x = rng.integers(-2**31, 2**31 - 1, size=shape).astype(np.int32)
+        xj, xt = jnp.asarray(x), torch.from_numpy(x)
+    else:
+        xj, _, xt, _ = _pair(shape, dtype, 1.0, seed=len(shape) * 29 + 4)
+    got = ops.fingerprint(xt, backend="ref")
+    # the CPU path as it was: bits zero-padded to (rows, 1024), rows % 8 == 0
+    bits = ref.bits_u32(xt)
+    rows = -(-bits.shape[0] // 1024)
+    rows = -(-rows // 8) * 8
+    padded = torch.zeros(rows * 1024, dtype=torch.int64)
+    padded[:bits.shape[0]] = bits
+    h1, h2 = (int(v) for v in ref.fingerprint_bits(padded))
+    salt = hash((tuple(xt.shape), dtype)) & 0xFFFFFFFF
+    assert got == ((h1 ^ salt) << 32) | h2
+    assert got == ref_ops.fingerprint(xj, backend="ref")
+
+
 def test_fingerprint_sensitivity():
     x = np.random.default_rng(0).normal(size=(256, 256)).astype(np.float32)
     f0 = ops.fingerprint(x, backend="ref")
@@ -205,6 +251,7 @@ def test_ops_return_numpy_in_requested_dtype():
     (dequant_apply_flat, ("f32", "i32")),
     (snapshot_fused_flat, ("f32", "f32")),
     (chain_apply_flat, ("f32", "stack")),
+    (fingerprint_flat, ("f32",)),
 ], ids=lambda v: getattr(v, "__name__", ""))
 def test_wrappers_run_plain_version_on_cpu_only(wrapper, args):
     rng = np.random.default_rng(5)
@@ -222,7 +269,8 @@ def test_wrappers_run_plain_version_on_cpu_only(wrapper, args):
     plain = {delta_quantize_flat: ref.delta_quantize_ref,
              snapshot_fused_flat: ref.snapshot_fused_ref,
              chain_apply_flat: ref.chain_apply_ref,
-             dequant_apply_flat: ref.dequant_apply_ref}[wrapper](*tensors)
+             dequant_apply_flat: ref.dequant_apply_ref,
+             fingerprint_flat: ref.fingerprint_padded}[wrapper](*tensors)
     for g, p in zip(got if isinstance(got, tuple) else (got,),
                     plain if isinstance(plain, tuple) else (plain,)):
         assert torch.equal(g, p)
@@ -245,8 +293,11 @@ def test_default_backend_raises_without_card():
                  lambda: ops.fingerprint(x)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
-    with pytest.raises(NotImplementedError, match="fingerprint_2d"):
-        ops.fingerprint(x, backend="cuda")
+    # naming the card explicitly raises the same way
+    for call in (lambda: ops.fingerprint(x, backend="cuda"),
+                 lambda: ops.delta_quantize(x, x, backend="cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     with pytest.raises(ValueError, match="unknown backend"):
         ops.delta_quantize(x, x, backend="interpret")
 
@@ -257,7 +308,8 @@ def test_cuda_sources_match_their_ctypes_bindings():
     kernel it replaces."""
     replaced = {"delta_quantize": ["delta_quantize_2d", "dequant_apply_2d"],
                 "snapshot_fused": ["snapshot_fused_2d"],
-                "chain_apply": ["chain_apply_2d"]}
+                "chain_apply": ["chain_apply_2d"],
+                "fingerprint": ["fingerprint_2d"]}
     for name in build.SOURCES:
         text = (build.CSRC / f"{name}.cu").read_text()
         found = {m.group(1): len(m.group(2).split(","))
@@ -268,6 +320,7 @@ def test_cuda_sources_match_their_ctypes_bindings():
         for kernel in replaced[name]:
             assert f"repro/kernels/{name}.py::{kernel}" in text
         assert "#include \"common.cuh\"" in text
+    assert set(replaced) == set(build.SOURCES)
     common = (build.CSRC / "common.cuh").read_text()
     assert "__fdiv_rn" in common and "__fmul_rn" in common
 
