@@ -9,10 +9,15 @@ exits non-zero on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA kernels with nvcc and prints the seconds;
-3. kernels: runs each kernel's wrapper at the main path's shapes, at ragged
-   shapes and with an overflowing delta, and holds it bit for bit against
-   its plain torch version on the same card inputs and against the numpy
-   twin on the host; times the kernel and the plain version;
+3. kernels: runs each storage kernel's wrapper at the main path's shapes,
+   at ragged shapes and with an overflowing delta, and holds it bit for
+   bit against its plain torch version on the same card inputs and
+   against the numpy twin on the host; holds the flash-attention kernel
+   within 2e-5 (f32) and 3e-2 (bf16) of its plain version over the
+   reference test's five mask specs, a prefix-LM prefix past a query
+   tile, ragged lengths and the serving prefill's shape; times each
+   kernel and its plain version, and flash attention beside
+   ``scaled_dot_product_attention``, which the port never calls;
 4. main path: commits a full-width paper-bert (f32, random weights from a
    seed) lineage base -> ft1 -> ft2 -> ft3 plus task-head (a child of ft1
    with a re-initialised lm_head) through ``ArtifactStore(chunk_threshold=
@@ -21,6 +26,16 @@ exits non-zero on failure:
    host (``backend="ref"``) checkout of the same repository, and the live
    weights within the quantization bound, a clean ``fsck``, and at least
    one launch of every kernel in that run;
+4b. serving, on phase 4's repository: ``ModelPool`` builds the ft3 and
+   task-head views on the card (``verify=True``; multi-hop segments
+   through the chain_apply kernel); ``ServeApp`` over a ``Router`` answers
+   HTTP requests whose probes must equal host-built views' bit for bit,
+   and its ``LineageWatcher`` hot-swaps ``prod`` to a newly published
+   finetune with no failed request; ``ServeEngine`` runs prefill (through
+   the flash kernel) and greedy decode of ft3 at full width on a batch of
+   8 x 512-token prompts and a ragged batch; two rows are held against
+   the port's engine on the host (prefill logits within 1e-3, greedy
+   tokens equal except after a near tie);
 5. the same lineage with the default chunk threshold, whose large tensors
    take the host chunk engine: bit-identical checkouts and a clean fsck;
 6. continuous checkpointing: ``Trainer`` trains full-width paper-bert (f32,
@@ -37,7 +52,7 @@ exits non-zero on failure:
    must launch once per large leaf per save, and dequant_apply in the
    lossy commits.
 
-Phases 4 and 6 each zero every kernel's launch count just before they
+Phases 4, 4b and 6 each zero every kernel's launch count just before they
 drive their path and read it just after. The line before last is one
 JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -54,6 +69,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -201,13 +217,77 @@ def check_kernels(gen):
              torch.from_numpy(host_dequant(h1, qsum, EPS)))
     torch.cuda.synchronize()
     errs["fingerprint"] = check_fingerprint(gen, bad)
+    errs["flash_attention"], errs["flash_attention_bf16"] = check_flash(
+        gen, bad)
     for line in bad:
         print(f"MISMATCH {line}", flush=True)
     if bad:
         fail(f"{len(bad)} kernel checks failed")
-    print("kernels: all five equal their plain versions (and the storage "
-          "kernels their numpy twins) bit for bit", flush=True)
+    print("kernels: the five storage kernels equal their plain versions "
+          "(and their numpy twins) bit for bit; flash_attention is within "
+          f"{FLASH_TOL['float32']} (f32) and {FLASH_TOL['bfloat16']} (bf16) "
+          f"of its plain version: max |err| {errs['flash_attention']:.3g} "
+          f"f32, {errs['flash_attention_bf16']:.3g} bf16", flush=True)
     return errs
+
+
+# the reference test's tolerances (tests/test_kernels.py): the kernel sums
+# in another order than the plain version, so the bits differ
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+SERVE_SHAPE = dict(B=8, Hq=12, Hkv=12, S=512, hd=64)   # paper-bert prefill
+
+
+def flash_cases():
+    """(shape, masks) of the flash kernel's checks: the reference test's
+    five specs, a prefix-LM prefix past a 64-row query tile, ragged
+    lengths (one with GQA at head_dim 128) and the serving prefill."""
+    return [
+        (dict(B=2, Hq=4, Hkv=2, S=64, hd=16), dict(causal=True)),
+        (dict(B=1, Hq=8, Hkv=1, S=32, hd=8), dict(causal=True)),
+        (dict(B=2, Hq=4, Hkv=4, S=64, hd=16), dict(causal=True, window=24)),
+        (dict(B=1, Hq=4, Hkv=2, S=48, hd=16),
+         dict(causal=True, prefix_len=16)),
+        (dict(B=2, Hq=2, Hkv=2, S=64, hd=16), dict(causal=False)),
+        (dict(B=1, Hq=4, Hkv=2, S=200, hd=64),
+         dict(causal=True, prefix_len=100)),
+        (dict(B=2, Hq=4, Hkv=2, S=77, hd=128), dict(causal=True)),
+        (dict(B=2, Hq=16, Hkv=8, S=300, hd=128),
+         dict(causal=True, window=100)),
+        (SERVE_SHAPE, dict(causal=True)),
+    ]
+
+
+def flash_inputs(gen, shape, dtype):
+    import torch
+    B, Hq, Hkv, S, hd = (shape[k] for k in ("B", "Hq", "Hkv", "S", "hd"))
+    return [torch.randn(dims, generator=gen, device="cuda").to(dtype)
+            for dims in ((B, Hq, S, hd), (B, Hkv, S, hd), (B, Hkv, S, hd))]
+
+
+def check_flash(gen, bad):
+    """The flash kernel against its plain version on the same card inputs,
+    in f32 and bf16. Returns the largest |kernel - plain| of each."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    worst = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        worst[name] = 0.0
+        for shape, masks in flash_cases():
+            q, k, v = flash_inputs(gen, shape, dtype)
+            got = flash_attention(q, k, v, **masks)
+            torch.cuda.synchronize()
+            plain = flash_attention_ref(q, k, v, **masks)
+            err = max_abs(got, plain)
+            worst[name] = max(worst[name], err)
+            if got.dtype != dtype or got.shape != q.shape or not (
+                    err <= FLASH_TOL[name]):
+                bad.append(f"flash_attention {name} {shape} {masks}: "
+                           f"max |kernel - plain| {err} (tolerance "
+                           f"{FLASH_TOL[name]})")
+    return worst["float32"], worst["bfloat16"]
 
 
 def fingerprint_cases(gen):
@@ -256,8 +336,9 @@ def check_fingerprint(gen, bad):
 
 
 def time_kernels(gen):
-    """Kernel and plain-version milliseconds at the main path's largest
-    shapes, with the bound each could reach on an H100 SXM."""
+    """Kernel and plain-version milliseconds at the main paths' largest
+    shapes, with the bound each could reach on an H100 SXM; for flash
+    attention also bf16 and the library call's milliseconds."""
     import torch
 
     from repro_torch.kernels import ref
@@ -265,6 +346,9 @@ def time_kernels(gen):
     from repro_torch.kernels.delta_quantize import (delta_quantize_flat,
                                                     dequant_apply_flat)
     from repro_torch.kernels.fingerprint import fingerprint_flat
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention import flops as flash_flops
     from repro_torch.kernels.snapshot_fused import snapshot_fused_flat
 
     def pair(shape, scale):
@@ -301,21 +385,49 @@ def time_kernels(gen):
             lambda: ref.fingerprint_padded(w2),
             4 * n_w + 16, 12 * n_w, "(12, 768, 3072) f32"),
     }
-    out = {}
+    # the serving prefill's attention, against one library call that
+    # computes the same function (timed here, never called by the port)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fq, fk, fv = flash_inputs(gen, SERVE_SHAPE, torch.float32)
+    bq, bk, bv = (t.to(torch.bfloat16) for t in (fq, fk, fv))
+    B, H, S, hd = fq.shape
+    rows["flash_attention"] = (
+        lambda: flash_attention(fq, fk, fv),
+        lambda: flash_attention_ref(fq, fk, fv),
+        4 * fq.numel() * 4, flash_flops(B, H, S, S, hd),
+        f"({B}, {H}, {S}, {hd}) f32 causal")
+    out = {"flash_attention": {
+        "library_ms": cuda_ms(lambda: sdpa(fq, fk, fv, is_causal=True), 20),
+        "ms_bf16": cuda_ms(lambda: flash_attention(bq, bk, bv), 20),
+        "library_ms_bf16": cuda_ms(
+            lambda: sdpa(bq, bk, bv, is_causal=True), 20)}}
     for name, (kernel, plain, nbytes, flops, shape) in rows.items():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / F32_OPS_PER_S * 1e3
-        out[name] = {
+        out.setdefault(name, {"library_ms": None}).update({
             "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 5),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "shape": shape}
+            "shape": shape})
     return out
 
 
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
+
+def finetune(parent, scale, gen):
+    """{key: f32 numpy}: ``parent`` plus sparse noise (density 0.3)."""
+    import numpy as np
+    import torch
+    out = {}
+    for k, v in parent.items():
+        t = torch.from_numpy(np.array(v, np.float32))
+        noise = torch.randn(t.shape, generator=gen) * scale
+        keep = torch.rand(t.shape, generator=gen) < 0.3
+        out[k] = (t + noise * keep).numpy()
+    return out
+
 
 def make_lineage(cfg, seed: int):
     """{node: flat f32 numpy params}: random paper-bert weights from a
@@ -329,20 +441,10 @@ def make_lineage(cfg, seed: int):
 
     gen = torch.Generator().manual_seed(seed)
     base = {k: to_numpy(v) for k, v in init_params(cfg, generator=gen).items()}
-
-    def finetune(parent, scale):
-        out = {}
-        for k, v in parent.items():
-            t = torch.from_numpy(v)
-            noise = torch.randn(t.shape, generator=gen) * scale
-            keep = torch.rand(t.shape, generator=gen) < 0.3
-            out[k] = (t + noise * keep).numpy()
-        return out
-
     params = {"base": base}
-    params["ft1"] = finetune(base, 5e-5)
-    params["ft2"] = finetune(params["ft1"], 1e-4)
-    params["ft3"] = finetune(params["ft2"], 7e-5)
+    params["ft1"] = finetune(base, 5e-5, gen)
+    params["ft2"] = finetune(params["ft1"], 1e-4, gen)
+    params["ft3"] = finetune(params["ft2"], 7e-5, gen)
     head = dict(params["ft1"])
     shape = head["lm_head"].shape
     head["lm_head"] = (torch.randn(shape, generator=gen)
@@ -429,12 +531,14 @@ def wrappers():
     from repro_torch.kernels.delta_quantize import (delta_quantize_flat,
                                                     dequant_apply_flat)
     from repro_torch.kernels.fingerprint import fingerprint_flat
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.snapshot_fused import snapshot_fused_flat
     return {"snapshot_fused": snapshot_fused_flat,
             "delta_quantize": delta_quantize_flat,
             "dequant_apply": dequant_apply_flat,
             "chain_apply": chain_apply_flat,
-            "fingerprint": fingerprint_flat}
+            "fingerprint": fingerprint_flat,
+            "flash_attention": flash_attention}
 
 
 def zero_launches():
@@ -467,7 +571,7 @@ def main_path(cfg, params, workdir, card):
     _, _, host = check_out(root, CHECKOUT, chunk_threshold=0, backend="ref")
     verify("main path", store2, refs, out, params, reference=host)
     missing = [k for k, n in launches.items()
-               if n == 0 and k != "fingerprint"]
+               if n == 0 and k not in ("fingerprint", "flash_attention")]
     if missing:
         fail(f"main path launched no {', '.join(missing)} kernel")
     return launches
@@ -491,6 +595,308 @@ def chunked_path(cfg, params, workdir):
         fail("chunked path: no tensor took the chunk engine")
     _, _, host = check_out(root, CHECKOUT, backend="ref")
     verify("chunked path", store2, refs, out, params, reference=host)
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: lineage-native serving of phase 4's lineage
+# ---------------------------------------------------------------------------
+
+SERVE_MAX_LEN = 544      # a 512-token prompt + 32 new tokens
+# last-token logits, card against host: f32 through 12 layers in another
+# summation order (cuBLAS and the flash kernel against the CPU's products
+# and the plain attention); greedy steps whose top-2 margin on the host is
+# below it may pick the other token
+SERVE_LOGIT_TOL = 1e-3
+
+
+def _http(url, body=None):
+    """(seconds, json) of a GET (``body`` None) or a POST; raises on a
+    status other than 200."""
+    import urllib.request
+    req = urllib.request.Request(
+        url, method="GET" if body is None else "POST",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as r:
+        out = json.loads(r.read())
+    return time.perf_counter() - t0, out
+
+
+def _quantiles_ms(seconds):
+    import numpy as np
+    a = np.atleast_1d(np.asarray(seconds, np.float64)) * 1e3
+    if a.size == 0:
+        return "none"
+    return (f"n={a.size} p50 {np.percentile(a, 50):.3f} ms, p99 "
+            f"{np.percentile(a, 99):.3f} ms, max {a.max():.3f} ms")
+
+
+def serve_pool(root, refs):
+    """Step 1: views of ft3 and task-head built on the card, verified."""
+    from repro_torch.serve import ModelPool
+    from repro_torch.store import ArtifactStore
+
+    pool = ModelPool(ArtifactStore(root=root, chunk_threshold=0), verify=True)
+    chain0 = wrappers()["chain_apply"].launches
+    for node in CHECKOUT:
+        view = pool.get(refs[node])
+        print(f"serving pool: {node} view built in {view.build_s:.3f} s, "
+              f"{len(view.params)} params ({len(view.aliased)} aliased to "
+              f"the base, {len(view.params) - len(view.aliased)} applied), "
+              f"private {view.private_bytes} bytes", flush=True)
+    stats = pool.stats()
+    launches = wrappers()["chain_apply"].launches - chain0
+    print(f"serving pool: base {stats['base_bytes']} bytes resident; "
+          f"{json.dumps({k: stats[k] for k in ('views_built', 'params_aliased', 'params_applied', 'chain_hops', 'segments_applied', 'fused_applies', 'params_verified')})}; "
+          f"chain_apply launches {launches}", flush=True)
+    if stats["fused_applies"] == 0 or launches == 0:
+        fail(f"serving pool: {stats['fused_applies']} fused applies and "
+             f"{launches} chain_apply launches")
+    return pool
+
+
+def serve_http(cfg, root, refs, pool, gen):
+    """Step 2: the HTTP surface over the pool, probes held against host
+    views, then a publish on the branch that the watcher hot-swaps to."""
+    import numpy as np
+
+    from repro_torch.convert import to_artifact
+    from repro_torch.core import LineageGraph
+    from repro_torch.serve import (LineageWatcher, LocalLineageSource,
+                                   ModelPool, Router, ServeApp,
+                                   start_in_thread)
+    from repro_torch.store import ArtifactStore
+
+    host = ModelPool(ArtifactStore(root=root, chunk_threshold=0,
+                                   backend="ref"), backend="ref")
+    router = Router(pool, ["prod=branch:base", "head=node:task-head"])
+    watcher = LineageWatcher(LocalLineageSource(root), router,
+                             interval_s=0.2)
+    app = ServeApp(router, pool, watcher)
+    server, thread = start_in_thread(app)
+    try:
+        first = watcher.poll()
+        nodes = {n: first["endpoints"][n].get("node") for n in ("prod", "head")}
+        if nodes != {"prod": "ft3", "head": "task-head"}:
+            fail(f"serving http: endpoints resolved to {nodes}: {first}")
+        watcher.start()
+        seconds = {}
+        for path in ("/api/endpoints", "/api/stats"):
+            seconds[path], doc = _http(server.url + path)
+        for name, node in nodes.items():
+            want = host.get(refs[node])
+            got = pool.get(refs[node])
+            if any(not np.array_equal(np.asarray(v).view(np.int32),
+                                      np.asarray(want.params[k]).view(np.int32))
+                   for k, v in got.params.items()):
+                fail(f"serving http: the card's {node} view differs from "
+                     f"the host's")
+            probe = want.probe()
+            for i in range(3):
+                t, out = _http(f"{server.url}/api/predict/{name}", {})
+                seconds.setdefault(f"predict {name}", []).append(t)
+                if (out["ref"] != refs[node]
+                        or out["y"] != [float(v) for v in probe.ravel()[:16]]
+                        or out["mean"] != float(probe.mean())):
+                    fail(f"serving http: {name} answered {out}, not the "
+                         f"host view's probe")
+
+        # publish ft4 on the branch while a client keeps predicting
+        errors, latencies, last = [], [], {}
+        stop = threading.Event()
+
+        def client():
+            while not stop.is_set():
+                try:
+                    t, out = _http(server.url + "/api/predict/prod", {})
+                    latencies.append(t)
+                    last.update(out)
+                except Exception as exc:  # noqa: BLE001 — any drop fails
+                    errors.append(repr(exc))
+
+        hammer = threading.Thread(target=client)
+        hammer.start()
+        t0 = time.perf_counter()
+        view = pool.get(refs["ft3"])
+        ft4 = finetune(view.params, 6e-5, gen)
+        writer = ArtifactStore(root=root, chunk_threshold=0)
+        graph = LineageGraph(path=root, store=writer, autosave=False)
+        graph.add_node(None, "ft4", model_type=cfg.name)
+        graph.add_version_edge("ft3", "ft4")
+        graph.add_node(to_artifact(ft4, cfg.name), "ft4")
+        graph.save()            # one atomic publish of lineage.json
+        ft4_ref = graph.nodes["ft4"].artifact_ref
+        t1 = time.perf_counter()
+        prod = router.endpoints["prod"]
+        while prod.current_ref != ft4_ref and time.perf_counter() - t1 < 300:
+            time.sleep(0.05)
+        t2 = time.perf_counter()
+        time.sleep(0.5)
+        stop.set()
+        hammer.join(timeout=60)
+        swapped = prod.current_ref == ft4_ref
+        print(f"serving http: ft4 committed + published in {t1 - t0:.3f} s, "
+              f"prod swapped {t2 - t1:.3f} s later (view build "
+              f"{prod.last_swap_s:.3f} s); {len(latencies)} predicts during "
+              f"the swap, {len(errors)} failed: {_quantiles_ms(latencies)}",
+              flush=True)
+        if not swapped or errors or last.get("ref") != ft4_ref:
+            fail(f"serving http: swapped={swapped}, last answer "
+                 f"{last.get('node')}, errors {errors[:3]}")
+        host.store.reload()     # the host pool's store predates ft4
+        want = host.get(ft4_ref).probe()
+        if last["y"] != [float(v) for v in want.ravel()[:16]]:
+            fail("serving http: ft4's answer is not the host view's probe")
+        stats = app.stats_json()
+        for path, t in seconds.items():
+            print(f"serving http: {path} {_quantiles_ms(t)}", flush=True)
+        print(f"serving http: server latency "
+              f"{json.dumps(stats['request_latency'])}; watcher "
+              f"{json.dumps({k: stats['watch'][k] for k in ('polls', 'changes', 'poll_failures')})}",
+              flush=True)
+    finally:
+        watcher.stop()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+
+
+def _greedy_host(cfg, params, tokens, n):
+    """Greedy tokens and each step's top-2 logit margin, on the host, with
+    the engine's own step functions. Returns (prefill logits, tokens,
+    margins)."""
+    import torch
+
+    from repro_torch.serve import make_prefill_step, make_serve_step
+    step = make_serve_step(cfg)
+    with torch.inference_mode():
+        logits, cache = make_prefill_step(cfg, SERVE_MAX_LEN)(
+            params, {"tokens": tokens})
+        first = logits.clone()
+        out, margins = [], []
+        for i in range(n):
+            top = torch.topk(logits, 2, dim=-1).values
+            margins.append((top[:, 0] - top[:, 1]).tolist())
+            token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            out.append(token)
+            if i < n - 1:
+                _, logits, cache = step(params, cache, token,
+                                        tokens.shape[1] + i)
+    return first, torch.cat(out, dim=1), margins
+
+
+def serve_engine(cfg, pool, refs, gen):
+    """Steps 3 and 4: ServeEngine at full width on the card, then two rows
+    against the port's own engine on the host."""
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import to_params
+    from repro_torch.models import prefill
+    from repro_torch.serve import ServeEngine
+
+    flat = pool.get(refs["ft3"]).params
+    engine = ServeEngine(cfg, to_params(flat, "cuda"), max_len=SERVE_MAX_LEN)
+    flash = wrappers()["flash_attention"]
+    B, S = SERVE_SHAPE["B"], SERVE_SHAPE["S"]
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    launches0 = flash.launches
+
+    def timed(batch, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.generate(batch, n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    timed({"tokens": tokens}, 2)            # warm-up: cuBLAS and the kernel
+    prefill_s, one = timed({"tokens": tokens}, 1)
+    total_s, full = timed({"tokens": tokens}, 32)
+    decode_ms = (total_s - prefill_s) / 31 * 1e3
+    lengths = torch.linspace(64, S, B).to(torch.int32).to("cuda")
+    pad = torch.arange(S, device="cuda")[None, :] >= lengths[:, None]
+    ragged_tokens = tokens.masked_fill(pad, 0)
+    ragged_s, ragged = timed({"tokens": ragged_tokens, "lengths": lengths}, 16)
+    launches = flash.launches - launches0
+    print(f"serving engine: {cfg.name} f32 ft3 view, batch {B} x {S} "
+          f"prompt: prefill {prefill_s:.4f} s, 32 tokens in {total_s:.4f} s "
+          f"({decode_ms:.3f} ms per decode step, {B * 32 / total_s:.1f} "
+          f"tokens/s); ragged batch (lengths "
+          f"{lengths.tolist()}) 16 tokens in {ragged_s:.4f} s "
+          f"({B * 16 / ragged_s:.1f} tokens/s); flash launches {launches}",
+          flush=True)
+    for name, out, n in (("full", full, 32), ("ragged", ragged, 16)):
+        if (tuple(out.shape) != (B, n) or out.dtype != torch.int32
+                or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size):
+            fail(f"serving engine: {name} batch gave {out.dtype}"
+                 f"{tuple(out.shape)} tokens")
+    if not torch.equal(full[:, :1], one):
+        fail("serving engine: generate(1) is not the first of generate(32)")
+    if launches == 0:
+        fail("serving engine: prefill launched no flash_attention kernel")
+
+    # step 4: two rows against the port's engine functions on the host
+    rows = tokens[:2]
+    with torch.inference_mode():
+        card_logits, _ = prefill(cfg, engine.params, {"tokens": rows},
+                                 SERVE_MAX_LEN)
+    host_params = to_params(flat, "cpu")
+    t0 = time.perf_counter()
+    host_logits, host_tokens, margins = _greedy_host(
+        cfg, host_params, rows.cpu(), 32)
+    host_s = time.perf_counter() - t0
+    card_logits = card_logits.cpu()
+    if not (torch.isfinite(card_logits).all() and
+            torch.isfinite(host_logits).all()):
+        fail("serving engine: non-finite logits")
+    err = float((card_logits - host_logits).abs().max())
+    near = []
+    for r in range(2):
+        got, want = full[r].cpu().tolist(), host_tokens[r].tolist()
+        diverged = next((i for i in range(32) if got[i] != want[i]), None)
+        if diverged is None:
+            continue
+        near.append((r, diverged, margins[diverged][r]))
+        if margins[diverged][r] >= SERVE_LOGIT_TOL:
+            fail(f"serving engine: row {r} step {diverged}: card token "
+                 f"{got[diverged]} vs host {want[diverged]} with a host "
+                 f"top-2 margin of {margins[diverged][r]}")
+    print(f"serving engine: host run of 2 rows in {host_s:.3f} s; last-token "
+          f"prefill logits max |card - host| {err:.3g} (tolerance "
+          f"{SERVE_LOGIT_TOL}); greedy tokens "
+          f"{'equal over all 32 steps' if not near else 'equal up to near ties'}"
+          f"{''.join(f'; row {r} diverges at step {i} (host top-2 margin {m:.3g})' for r, i, m in near)}",
+          flush=True)
+    if not err <= SERVE_LOGIT_TOL:
+        fail(f"serving engine: prefill logits differ by {err}")
+    del engine
+
+
+def serving_path(cfg, workdir, seed):
+    """Phase 4b. Returns the launch counts of its run."""
+    import torch
+
+    from repro_torch.core import LineageGraph
+    from repro_torch.store import ArtifactStore
+
+    root = os.path.join(workdir, "whole")
+    graph = LineageGraph(path=root, store=ArtifactStore(
+        root=root, chunk_threshold=0, backend="ref"))
+    refs = {n: graph.nodes[n].artifact_ref for n in graph.nodes}
+    gen = torch.Generator().manual_seed(seed + 1)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    zero_launches()
+    t0 = time.perf_counter()
+    pool = serve_pool(root, refs)
+    serve_http(cfg, root, refs, pool, gen)
+    serve_engine(cfg, pool, refs, cuda_gen)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"serving: phase took {time.perf_counter() - t0:.3f} s, launches "
+          f"{json.dumps(launches)}", flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -748,6 +1154,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # f32 products in full f32 on the card (no TF32), as on the host
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build
     from repro_torch.models import get_config
 
@@ -785,6 +1194,7 @@ def main() -> int:
                                dir=os.path.join(ROOT, "build"))
     try:
         launches = {"lineage": main_path(cfg, params, workdir, card)}
+        launches["serving"] = serving_path(cfg, workdir, args.seed)
         chunked_path(cfg, params, workdir)
         del params
         launches["checkpoint"] = checkpoint_path(cfg, workdir, card,
@@ -803,6 +1213,8 @@ def main() -> int:
                         "src/repro/kernels/chain_apply.py:60"),
         "fingerprint": ("fingerprint.cu",
                         "src/repro/kernels/fingerprint.py:57"),
+        "flash_attention": ("flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:112"),
     }
     kernels = []
     for name, (source, where) in replaces.items():
@@ -814,11 +1226,18 @@ def main() -> int:
             "launches_by_path": {p: n[name] for p, n in launches.items()},
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"]})
+        if name == "flash_attention":
+            kernels[-1].update(max_abs_err_bf16=errs[f"{name}_bf16"],
+                               ms_bf16=t["ms_bf16"],
+                               library_ms_bf16=t["library_ms_bf16"])
     for k in kernels:
+        library = ("" if k["library_ms"] is None
+                   else f", library {k['library_ms']:.4f} ms")
         print(f"kernel {k['name']}: {k['ms']:.4f} ms at {k['shape']} "
-              f"(bound {k['bound_ms']:.4f} ms, plain {k['plain_ms']:.4f} ms), "
+              f"(bound {k['bound_ms']:.4f} ms, plain {k['plain_ms']:.4f} ms"
+              f"{library}), "
               f"{k['launches']} launches on the main paths "
               f"{json.dumps(k['launches_by_path'])}", flush=True)
     print(card, flush=True)

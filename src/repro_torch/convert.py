@@ -12,6 +12,11 @@ The store keeps parameters as numpy arrays, and numpy has no bfloat16
 here, so bf16 parameters raise ``NotImplementedError`` until the bf16
 storage path arrives.
 
+:func:`to_params` turns a flat ``{path: array}`` dict (a serving view's
+parameters, or the reference's ``flatten_state(init_params(cfg))``) into
+the model's nested tensor tree on a device, as ``ServeEngine`` and
+``forward`` take it; ``models.flat_paths`` is its inverse.
+
 :func:`state_from_reference` turns a reference train state (nested dicts
 of arrays, the reference's ``OptState``, 0-dim step counters) into this
 package's, so both packages can be fed the same state.
@@ -28,6 +33,7 @@ from repro_torch.common.tree import is_namedtuple
 from repro_torch.core.artifact import ModelArtifact
 from repro_torch.kernels.build import BF16_ITEM
 from repro_torch.models.graph import state_graph
+from repro_torch.models.model import _nested
 from repro_torch.optim.adamw import OptState
 
 
@@ -54,6 +60,14 @@ def to_artifact(flat: Mapping[str, Any], model_type: str,
     params = {k: to_numpy(v) for k, v in flat.items()}
     return ModelArtifact(state_graph(params, model_type), params,
                          model_type=model_type, metadata=dict(metadata or {}))
+
+
+def to_params(flat: Mapping[str, Any], device="cpu") -> Dict[str, Any]:
+    """The nested parameter tree of ``flat``: every array (or tensor) a
+    tensor of the same dtype and shape on ``device``."""
+    return _nested({k: v.to(device) if isinstance(v, torch.Tensor)
+                    else torch.tensor(to_numpy(v), device=device)
+                    for k, v in flat.items()})
 
 
 def state_from_reference(state: Any, device="cpu") -> Any:

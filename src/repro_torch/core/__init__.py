@@ -1,6 +1,6 @@
 """MGit core: lineage graph, layer-graph IR, artifacts, traversal.
 
-``diff``, ``merge``, ``cascade``, ``auto`` and ``quarantine`` are not part
+``diff``, ``merge``, ``cascade`` and ``auto`` are not part
 of this package yet; ``LineageGraph.merge`` and
 ``LineageGraph.run_update_cascade`` import them lazily and raise
 ``ImportError`` until they arrive.

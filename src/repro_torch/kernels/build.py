@@ -27,7 +27,8 @@ from typing import Dict, Sequence
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("delta_quantize", "snapshot_fused", "chain_apply", "fingerprint")
+SOURCES = ("delta_quantize", "snapshot_fused", "chain_apply", "fingerprint",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,6 +49,10 @@ SIGNATURES = {
     },
     "fingerprint": {
         "mgit_fingerprint": (_P, _I32, _I64, _I64, _P, _I32, _P),
+    },
+    "flash_attention": {
+        "mgit_flash_attention": (_P, _P, _P, _P) + (_I32,) * 9
+        + (_F32, _I32, _I32, _P),
     },
 }
 

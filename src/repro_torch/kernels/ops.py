@@ -21,7 +21,7 @@ its hash depends on it, but its kernel never materializes the padding.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -44,6 +44,22 @@ def default_backend() -> str:
             "no CUDA device: the storage kernels run on the card; pass "
             "backend='ref' to ask for the plain torch versions on the CPU")
     return "cuda"
+
+
+def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
+    """A model's device: the card unless the caller names another.
+
+    ``None`` and a bare ``"cuda"`` mean the current CUDA device and raise
+    when there is no card."""
+    if device is None:
+        default_backend()   # raises when there is no card
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda":
+        default_backend()
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _device(backend: Optional[str]) -> torch.device:
@@ -165,4 +181,4 @@ def fingerprint(x, backend: Optional[str] = None) -> int:
 
 
 __all__ = ["delta_quantize", "dequant_apply", "chain_apply", "snapshot_fused",
-           "fingerprint", "default_backend"]
+           "fingerprint", "default_backend", "resolve_device"]

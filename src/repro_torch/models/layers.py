@@ -1,29 +1,34 @@
 """Shared layer numerics of the dense family: norms, RoPE, attention, MLP.
 
 The math is the reference package's ``repro/models/layers.py``, in plain
-torch ops: the reference runs no Pallas kernel in its model (attention is
-its XLA chunked path), so none is needed here. Conventions kept from it:
+torch ops. Conventions kept from it:
 
 * ``rmsnorm`` scales by ``1 + w`` (weights initialise to zero);
 * ``rope`` rotates the two halves of the head dimension, not interleaved
   pairs;
-* attention scales ``q`` before the product and runs the same double-
-  chunked online softmax as ``chunked_attention``, over blocks of
+* training attention scales ``q`` before the product and runs the same
+  double-chunked online softmax as ``chunked_attention``, over blocks of
   ``cfg.attn_chunk`` queries and keys;
 * the GELU MLP uses the tanh approximation, ``jax.nn.gelu``'s default.
 
-Decode attention (against a cache), cross-attention, MoE and SSM layers
+With a decode cache, ``attention_layer`` writes the new keys and values
+into it and attends as the reference does: a prefill (S > 1) runs causal
+attention over the prompt itself through ``kernels.flash_attention`` (the
+CUDA kernel on the card, its plain version on the CPU), which computes the
+reference's ``chunked_attention`` function; a decode step attends over the
+cache with ``decode_attention``. Cross-attention, MoE and SSM layers
 arrive with their families.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.dist.sharding import shard
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -1e30
@@ -141,10 +146,41 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, Hq, hd)
 
 
+def _write_cache(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                 v: torch.Tensor, cache_pos: int, ring: bool) -> None:
+    """Write this call's keys and values into ``cache`` in place.
+
+    A linear cache takes them at ``cache_pos``; a ring buffer (sliding
+    window) at ``cache_pos % Sc``. A prefill that overflows a ring keeps
+    only its last ``Sc`` keys, rotated so position p lands in slot p % Sc.
+    The reference's ``dynamic_update_slice`` silently clamps a write that
+    runs past the end of the buffer to end at its last slot; here that
+    write raises ``ValueError``."""
+    Sc = cache["k"].shape[1]
+    S = k.shape[1]
+    if ring and S >= Sc:
+        shift = (cache_pos + S) % Sc
+        cache["k"].copy_(torch.roll(k[:, -Sc:], shift, dims=1))
+        cache["v"].copy_(torch.roll(v[:, -Sc:], shift, dims=1))
+        return
+    start = cache_pos % Sc if ring else cache_pos
+    if start < 0 or start + S > Sc:
+        raise ValueError(f"cache write of {S} positions at slot {start} runs "
+                         f"past the cache's {Sc} slots")
+    cache["k"][:, start:start + S] = k
+    cache["v"][:, start:start + S] = v
+
+
 def attention_layer(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
                     positions: torch.Tensor, causal: bool = True,
-                    prefix_len: int = 0) -> torch.Tensor:
-    """Self-attention sublayer: proj -> rope -> attention -> out."""
+                    prefix_len: int = 0,
+                    cache: Optional[Dict[str, torch.Tensor]] = None,
+                    cache_pos: int = 0) -> torch.Tensor:
+    """Self-attention sublayer: proj -> rope -> (cache) -> attention -> out.
+
+    ``cache``: {"k", "v"} ring or linear buffers (B, Sc, Hkv, hd) for
+    decode, written IN PLACE at the integer write index ``cache_pos`` (the
+    reference returns new buffers instead)."""
     B, S, D = x.shape
     hd = cfg.resolved_head_dim
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
@@ -159,11 +195,51 @@ def attention_layer(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = chunked_attention(q, k, v, cfg, causal=causal,
-                            prefix_len=prefix_len)
+    if cache is None:
+        out = chunked_attention(q, k, v, cfg, causal=causal,
+                                prefix_len=prefix_len)
+    else:
+        cache_pos = int(cache_pos)
+        ring = cfg.window > 0
+        _write_cache(cache, k, v, cache_pos, ring)
+        if S > 1:
+            # prefill: causal attention over the prompt itself; the cache
+            # is only written, not attended
+            out = flash_attention(
+                q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(), causal=True,
+                window=cfg.window, prefix_len=prefix_len).transpose(1, 2)
+        else:
+            Sc = cache["k"].shape[1]
+            kv_len = min(cache_pos + S, Sc) if ring else cache_pos + S
+            out = decode_attention(q, cache["k"], cache["v"], cfg,
+                                   kv_len=kv_len, ring=ring,
+                                   cache_pos=cache_pos)
     out = shard(out.reshape(B, S, Hq * hd), ("pod", "data"), None, "model")
     out = torch.einsum("bsh,hd->bsd", out.to(x.dtype), p["wo"])
     return shard(out, ("pod", "data"), None, None)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cfg: ModelConfig, *, kv_len: int, ring: bool = False,
+                     cache_pos: int = 0) -> torch.Tensor:
+    """Single-token (or short Sq) attention against a cache.
+
+    q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd). Slots written in the last
+    ``kv_len`` steps are attended: in a ring buffer those whose age
+    ``(cache_pos - slot) % Skv`` is below ``kv_len``, in a linear cache
+    the first ``kv_len``."""
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    q = q.reshape(B, Sq, Hkv, G, hd).to(torch.float32) * hd ** -0.5
+    s = torch.einsum("bqhgd,bchd->bqhgc", q, k.to(torch.float32))
+    slot = torch.arange(Skv, device=q.device)
+    valid = ((cache_pos - slot) % Skv < kv_len) if ring else slot < kv_len
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    s = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqhgc,bchd->bqhgd", s, v.to(torch.float32))
+    return out.reshape(B, Sq, Hq, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -184,4 +260,4 @@ def mlp(x: torch.Tensor, p: Dict, cfg: ModelConfig,
 
 
 __all__ = ["NEG_INF", "rmsnorm", "rope", "chunked_attention",
-           "attention_layer", "mlp"]
+           "attention_layer", "decode_attention", "mlp"]

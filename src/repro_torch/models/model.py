@@ -1,4 +1,4 @@
-"""Parameters, initialisation and the training forward pass (dense family).
+"""Parameters, initialisation, the forward pass and decoding (dense family).
 
 ``param_shapes`` gives the same flat ``{path: shape}`` as the reference
 package's ``repro/models/model.py::param_shapes`` for the dense family, and
@@ -9,8 +9,11 @@ with ``repro_torch.convert``.
 
 ``forward`` is the reference's training forward for the dense family: the
 ``lax.scan`` over stacked layer weights becomes a loop that indexes layer
-``i`` of every stacked leaf. The other families, prefill, decode and the
-decode cache raise ``NotImplementedError`` naming their ROADMAP item.
+``i`` of every stacked leaf. ``prefill`` and ``decode_step`` are the
+reference's too, with the decode cache (``init_cache``) carried through
+the same loop: layer ``i`` writes its slice of the stacked K/V buffers in
+place. The other families raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import attention_layer, mlp, rmsnorm
 
 Params = Dict[str, Any]
-MODELS_ITEM = "other model families, decode, prefill and cache"
+MODELS_ITEM = "the other model families"
 _NORM_LEAVES = ("ln1", "ln2", "ln_cross", "final_norm", "enc_final_norm",
                 "norm", "q_norm", "k_norm")
 
@@ -126,11 +129,12 @@ def flat_paths(tree: Params, prefix: str = "") -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 def _dense_block(x, lp, cfg: ModelConfig, positions, prefix_len,
-                 causal=True):
-    """One dense decoder layer."""
+                 cache=None, cache_pos=0, causal=True):
+    """One dense decoder layer (writes its ``cache`` slice in place)."""
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     x = x + attention_layer(h, lp["attn"], cfg, positions=positions,
-                            causal=causal, prefix_len=prefix_len)
+                            causal=causal, prefix_len=prefix_len,
+                            cache=cache, cache_pos=cache_pos)
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     return x + mlp(h, lp["mlp"], cfg)
 
@@ -142,14 +146,18 @@ def _layer(tree: Params, i: int) -> Params:
 
 
 def _run_stack(x, layers_params, cfg: ModelConfig, positions, *,
-               prefix_len: int = 0, causal: bool = True):
-    """The reference's scan over stacked layers, as a loop.
+               prefix_len: int = 0, causal: bool = True, cache=None,
+               cache_pos: int = 0):
+    """The reference's scan over stacked layers, as a loop. Layer ``i``
+    gets views of ``cache``'s slices ``[i]`` and writes them in place.
 
     ``cfg.remat`` does not change the numbers, so activations are kept."""
     n = next(iter(flat_paths(layers_params).values())).shape[0]
     for i in range(n):
+        c = None if cache is None else _layer(cache, i)
         x = _dense_block(x, _layer(layers_params, i), cfg, positions,
-                         prefix_len, causal=causal)
+                         prefix_len, cache=c, cache_pos=cache_pos,
+                         causal=causal)
     return x
 
 
@@ -183,13 +191,54 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
     return _unembed(cfg, params, x)
 
 
-def prefill(*args, **kwargs):
-    raise NotImplementedError(
-        f"prefill and the decode cache wait for the ROADMAP item "
-        f"'{MODELS_ITEM}'")
+# ---------------------------------------------------------------------------
+# KV cache + decode
+# ---------------------------------------------------------------------------
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int
+                 ) -> Dict[str, Tuple[Tuple, torch.dtype]]:
+    """Flat {path: (shape, dtype)} for the decode cache: stacked K and V of
+    (layers, batch, slots, kv heads, head_dim), with ``min(max_len,
+    window)`` slots (a ring buffer) under a sliding window."""
+    _require_dense(cfg)
+    dtype = torch_dtype(cfg.dtype)
+    kv_len = min(max_len, cfg.window) if cfg.window else max_len
+    shape = (cfg.n_layers, batch, kv_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": (shape, dtype), "v": (shape, dtype)}
 
 
-def decode_step(*args, **kwargs):
-    raise NotImplementedError(
-        f"decode_step and the decode cache wait for the ROADMAP item "
-        f"'{MODELS_ITEM}'")
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device="cpu") -> Params:
+    """A zeroed decode cache on ``device``."""
+    return _nested({p: torch.zeros(s, dtype=d, device=device)
+                    for p, (s, d) in cache_shapes(cfg, batch, max_len).items()})
+
+
+def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
+                cache: Params, pos: int):
+    """One decode step: token (B, 1) + cache at position ``pos`` ->
+    (logits (B, V), cache). The cache is updated in place."""
+    _require_dense(cfg)
+    x = _embed(cfg, params, token)
+    positions = pos + torch.arange(token.shape[1], device=token.device)
+    x = _run_stack(x, params["layers"], cfg, positions, cache=cache,
+                   cache_pos=pos)
+    return _unembed(cfg, params, x)[:, -1], cache
+
+
+def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            max_len: int):
+    """Run the prompt, returning (last-token logits (B, V), filled cache).
+
+    The cache is written at positions [0, S); attention over the prompt
+    runs through the flash-attention kernel on the card."""
+    _require_dense(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = _embed(cfg, params, tokens)
+    cache = init_cache(cfg, B, max_len, device=x.device)
+    x = _run_stack(x, params["layers"], cfg,
+                   torch.arange(S, device=tokens.device), cache=cache)
+    # unembed the LAST position only: prefill never needs (B, S, V) logits
+    return _unembed(cfg, params, x[:, -1:])[:, 0], cache

@@ -17,24 +17,11 @@ import torch
 
 from repro_torch.data import SyntheticPipeline
 from repro_torch.ft import ElasticRestart, StepTimer, StragglerPolicy
-from repro_torch.kernels.ops import default_backend
+from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.store.checkpoint import CheckpointManager
 from repro_torch.train.step import init_state, make_train_step
-
-
-def _resolve_device(device: Union[None, str, torch.device]) -> torch.device:
-    """The trainer's device: the card unless the caller names another."""
-    if device is None:
-        default_backend()   # raises when there is no card
-        return torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
-    if device.type == "cuda":
-        default_backend()
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 class Trainer:
@@ -48,7 +35,7 @@ class Trainer:
                  lossy_tier: bool = False, keyframe_every: int = 8,
                  device: Union[None, str, torch.device] = None):
         self.cfg = cfg
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         # ``commit_every`` is the continuous-checkpointing cadence knob
         # (DESIGN.md §15) — it overrides the legacy checkpoint_every name
         self.checkpoint_every = (commit_every if commit_every is not None

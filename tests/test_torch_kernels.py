@@ -309,7 +309,8 @@ def test_cuda_sources_match_their_ctypes_bindings():
     replaced = {"delta_quantize": ["delta_quantize_2d", "dequant_apply_2d"],
                 "snapshot_fused": ["snapshot_fused_2d"],
                 "chain_apply": ["chain_apply_2d"],
-                "fingerprint": ["fingerprint_2d"]}
+                "fingerprint": ["fingerprint_2d"],
+                "flash_attention": ["flash_attention"]}
     for name in build.SOURCES:
         text = (build.CSRC / f"{name}.cu").read_text()
         found = {m.group(1): len(m.group(2).split(","))
