@@ -9,15 +9,21 @@ exits non-zero on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA kernels with nvcc and prints the seconds;
+   prints each flash-attention instantiation's ptxas report (registers,
+   spills) and the tensor-core instructions in its SASS (``cuobjdump
+   -sass``: HGMMA, or HMMA for an mma.sync f32 path), and fails when one
+   has none or ``cuobjdump`` is missing;
 3. kernels: runs each storage kernel's wrapper at the main path's shapes,
    at ragged shapes and with an overflowing delta, and holds it bit for
    bit against its plain torch version on the same card inputs and
    against the numpy twin on the host; holds the flash-attention kernel
    within 2e-5 (f32) and 3e-2 (bf16) of its plain version over the
    reference test's five mask specs, a prefix-LM prefix past a query
-   tile, ragged lengths and the serving prefill's shape; times each
-   kernel and its plain version, and flash attention beside
-   ``scaled_dot_product_attention``, which the port never calls;
+   tile, ragged lengths, the serving prefill's shape, the qwen3-0.6b
+   geometry at 4096 tokens and a head dim the wrapper pads; times each
+   kernel and its plain version, and flash attention (device time per
+   call, and eager) beside ``scaled_dot_product_attention``, which the
+   port never calls, at the serving shape and the qwen3-0.6b geometry;
 4. main path: commits a full-width paper-bert (f32, random weights from a
    seed) lineage base -> ft1 -> ft2 -> ft3 plus task-head (a child of ft1
    with a re-initialised lm_head) through ``ArtifactStore(chunk_threshold=
@@ -95,6 +101,75 @@ def card_line() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi exited {out.returncode}: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 2: what the flash kernel compiled to
+# ---------------------------------------------------------------------------
+
+def cuobjdump(build) -> str:
+    """The toolkit's cuobjdump (beside nvcc), else Triton's copy."""
+    import importlib.util
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    beside = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    if os.path.exists(beside):
+        return beside
+    spec = importlib.util.find_spec("triton")
+    for root in (spec.submodule_search_locations or []) if spec else []:
+        path = os.path.join(root, "backends", "nvidia", "bin", "cuobjdump")
+        if os.path.exists(path):
+            return path
+    fail("cuobjdump not found (CUDA toolkit or Triton's backend)")
+
+
+def instantiation(symbol: str) -> str:
+    """'bf16 hd128' for a mangled flash_kernel<T, HD> symbol."""
+    import re
+    dtype = "bf16" if "bfloat16" in symbol else "f32"
+    hd = re.search(r"Li(\d+)E", symbol)
+    return f"{dtype} hd{hd.group(1) if hd else '?'}"
+
+
+def tensor_core_report(build, log: str) -> None:
+    """Print each flash_kernel instantiation's ptxas report and the count
+    of tensor-core instructions in its SASS; fail when one has none."""
+    reports, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            current = line.split("'")[1]
+            reports[current] = []
+        elif current and ("Used" in line or "spill" in line
+                          or "warning" in line.lower()):
+            reports[current].append(line.strip())
+    for symbol, lines in reports.items():
+        print(f"ptxas flash_attention {instantiation(symbol)}: "
+              f"{' | '.join(lines)}", flush=True)
+    sass = subprocess.run(
+        [cuobjdump(build), "-sass",
+         str(build.library_path("flash_attention"))],
+        capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump exited {sass.returncode}: {sass.stderr.strip()}")
+    counts, current = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :")[1].strip()
+            counts[current] = {"HGMMA": 0, "HMMA": 0}
+        elif current:
+            for op in ("HGMMA", "HMMA"):
+                counts[current][op] += f" {op}." in line or f" {op} " in line
+    kernels = {instantiation(k): v for k, v in counts.items()
+               if "flash_kernel" in k}
+    print(f"sass flash_attention tensor-core instructions: "
+          f"{json.dumps(kernels, sort_keys=True)}", flush=True)
+    if len(kernels) != 4:
+        fail(f"expected 4 flash_kernel instantiations, found {sorted(kernels)}")
+    for label, n in kernels.items():
+        need = ("HGMMA",) if label.startswith("bf16") else ("HGMMA", "HMMA")
+        if not any(n[op] for op in need):
+            fail(f"flash_kernel {label} has no {' or '.join(need)} in its SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -235,12 +310,15 @@ def check_kernels(gen):
 # in another order than the plain version, so the bits differ
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 SERVE_SHAPE = dict(B=8, Hq=12, Hkv=12, S=512, hd=64)   # paper-bert prefill
+# configs/qwen3_0_6b.py's attention (GQA, head_dim 128) at a long prompt
+QWEN3_SHAPE = dict(B=1, Hq=16, Hkv=8, S=4096, hd=128)
 
 
 def flash_cases():
     """(shape, masks) of the flash kernel's checks: the reference test's
     five specs, a prefix-LM prefix past a 64-row query tile, ragged
-    lengths (one with GQA at head_dim 128) and the serving prefill."""
+    lengths (one with GQA at head_dim 128), the serving prefill, the
+    qwen3-0.6b geometry, and a head_dim the wrapper pads (100 -> 104)."""
     return [
         (dict(B=2, Hq=4, Hkv=2, S=64, hd=16), dict(causal=True)),
         (dict(B=1, Hq=8, Hkv=1, S=32, hd=8), dict(causal=True)),
@@ -254,6 +332,9 @@ def flash_cases():
         (dict(B=2, Hq=16, Hkv=8, S=300, hd=128),
          dict(causal=True, window=100)),
         (SERVE_SHAPE, dict(causal=True)),
+        (QWEN3_SHAPE, dict(causal=True)),
+        (dict(B=1, Hq=4, Hkv=2, S=150, hd=100),
+         dict(causal=True, prefix_len=70)),
     ]
 
 
@@ -338,7 +419,7 @@ def check_fingerprint(gen, bad):
 def time_kernels(gen):
     """Kernel and plain-version milliseconds at the main paths' largest
     shapes, with the bound each could reach on an H100 SXM; for flash
-    attention also bf16 and the library call's milliseconds."""
+    attention see ``time_flash``."""
     import torch
 
     from repro_torch.kernels import ref
@@ -346,9 +427,6 @@ def time_kernels(gen):
     from repro_torch.kernels.delta_quantize import (delta_quantize_flat,
                                                     dequant_apply_flat)
     from repro_torch.kernels.fingerprint import fingerprint_flat
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_ref)
-    from repro_torch.kernels.flash_attention import flops as flash_flops
     from repro_torch.kernels.snapshot_fused import snapshot_fused_flat
 
     def pair(shape, scale):
@@ -385,30 +463,83 @@ def time_kernels(gen):
             lambda: ref.fingerprint_padded(w2),
             4 * n_w + 16, 12 * n_w, "(12, 768, 3072) f32"),
     }
-    # the serving prefill's attention, against one library call that
-    # computes the same function (timed here, never called by the port)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    fq, fk, fv = flash_inputs(gen, SERVE_SHAPE, torch.float32)
-    bq, bk, bv = (t.to(torch.bfloat16) for t in (fq, fk, fv))
-    B, H, S, hd = fq.shape
-    rows["flash_attention"] = (
-        lambda: flash_attention(fq, fk, fv),
-        lambda: flash_attention_ref(fq, fk, fv),
-        4 * fq.numel() * 4, flash_flops(B, H, S, S, hd),
-        f"({B}, {H}, {S}, {hd}) f32 causal")
-    out = {"flash_attention": {
-        "library_ms": cuda_ms(lambda: sdpa(fq, fk, fv, is_causal=True), 20),
-        "ms_bf16": cuda_ms(lambda: flash_attention(bq, bk, bv), 20),
-        "library_ms_bf16": cuda_ms(
-            lambda: sdpa(bq, bk, bv, is_causal=True), 20)}}
+    out = {}
     for name, (kernel, plain, nbytes, flops, shape) in rows.items():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / F32_OPS_PER_S * 1e3
-        out.setdefault(name, {"library_ms": None}).update({
+        out[name] = {
             "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 5),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "shape": shape})
+            "library_ms": None, "shape": shape}
+    out["flash_attention"] = time_flash(gen, SERVE_SHAPE, plain=True)
+    out["flash_attention"]["qwen3_0_6b"] = time_flash(gen, QWEN3_SHAPE)
+    return out
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean device milliseconds of ``fn()``: ``iters`` calls captured in a
+    CUDA graph, replayed 5 times between CUDA events, so the host's cost of
+    issuing each call is left out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * iters)
+
+
+def time_flash(gen, shape, plain=False):
+    """The flash kernel's milliseconds at ``shape`` (causal) in f32 and
+    bf16, each beside its bound (``flash_attention.roofline``) and one
+    library call that computes the same function,
+    ``scaled_dot_product_attention`` (timed here, never called by the
+    port), on k and v expanded to the query heads outside the timing.
+
+    ``ms`` is device time per call (``graph_ms``); ``eager_ms`` times the
+    same calls issued one by one (``cuda_ms``), where a call this short
+    can be bound by the host issuing it."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref,
+                                                     roofline)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, Hq, Hkv, S, hd = (shape[k] for k in ("B", "Hq", "Hkv", "S", "hd"))
+    out = {"shape": f"({B}, {Hq}, {Hkv}, {S}, {hd}) causal, f32 / bf16"}
+    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        q, k, v = flash_inputs(gen, shape, dtype)
+        ke, ve = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
+        bound, by = roofline(B, Hq, Hkv, S, S, hd, dtype)
+
+        def kernel():
+            return flash_attention(q, k, v)
+
+        def library():
+            return sdpa(q, ke, ve, is_causal=True)
+
+        out.update({
+            f"ms{tag}": graph_ms(kernel, 20),
+            f"library_ms{tag}": graph_ms(library, 20),
+            f"eager_ms{tag}": cuda_ms(kernel, 20),
+            f"library_eager_ms{tag}": cuda_ms(library, 20),
+            f"bound_ms{tag}": bound, f"bound_by{tag}": by})
+        if plain and dtype == torch.float32:
+            out["plain_ms"] = cuda_ms(lambda: flash_attention_ref(q, k, v), 5)
     return out
 
 
@@ -1170,11 +1301,15 @@ def main() -> int:
     t0 = time.perf_counter()
     seconds = build.build()
     print(f"build: {time.perf_counter() - t0:.3f} s wall "
-          f"({json.dumps({k: round(v, 3) for k, v in seconds.items()})})",
-          flush=True)
+          f"({json.dumps({k: round(v, 3) for k, v in seconds.items()})}); "
+          f"flash_attention {seconds['flash_attention']:.3f} s", flush=True)
     for name in build.SOURCES:
         log = (build.build_dir() / f"{name}.log").read_text().strip()
-        print(f"ptxas {name}: {' | '.join(log.splitlines()[-4:])}", flush=True)
+        if name == "flash_attention":
+            tensor_core_report(build, log)
+        else:
+            print(f"ptxas {name}: {' | '.join(log.splitlines()[-4:])}",
+                  flush=True)
 
     # phase 3: kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1229,9 +1364,13 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"]})
         if name == "flash_attention":
-            kernels[-1].update(max_abs_err_bf16=errs[f"{name}_bf16"],
-                               ms_bf16=t["ms_bf16"],
-                               library_ms_bf16=t["library_ms_bf16"])
+            kernels[-1].update(
+                {key: t[key] for key in (
+                    "ms_bf16", "library_ms_bf16", "bound_ms_bf16",
+                    "bound_by_bf16", "eager_ms", "eager_ms_bf16",
+                    "library_eager_ms", "library_eager_ms_bf16",
+                    "qwen3_0_6b")},
+                max_abs_err_bf16=errs[f"{name}_bf16"])
     for k in kernels:
         library = ("" if k["library_ms"] is None
                    else f", library {k['library_ms']:.4f} ms")
@@ -1240,6 +1379,15 @@ def main() -> int:
               f"{library}), "
               f"{k['launches']} launches on the main paths "
               f"{json.dumps(k['launches_by_path'])}", flush=True)
+    flash = timing["flash_attention"]
+    for label, t in (("serving", flash), ("qwen3-0.6b", flash["qwen3_0_6b"])):
+        for dt, tag in (("f32", ""), ("bf16", "_bf16")):
+            print(f"flash_attention {label} {t['shape']} {dt}: "
+                  f"{t['ms' + tag]:.4f} ms per call on the device (eager "
+                  f"{t['eager_ms' + tag]:.4f}), bound "
+                  f"{t['bound_ms' + tag]:.4f} by {t['bound_by' + tag]}, "
+                  f"sdpa {t['library_ms' + tag]:.4f} (eager "
+                  f"{t['library_eager_ms' + tag]:.4f})", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,13 @@ f32. Query and key positions both count from 0, so causal, sliding-window
 (``q - k < window``) and prefix-LM (``k < prefix_len`` is visible under a
 causal mask) masks are the reference's.
 
+The kernel runs on Hopper's tensor cores through ``wgmma``: bf16 directly,
+f32 as three TF32 passes (3xTF32), with k and v tiles loaded by TMA into
+a ring in shared memory. A block owns 64 query rows (128 for f32 at head
+dim 64) and walks the 64-key tiles some of them can see. It takes head
+dims that are a multiple of 8 up to 128; the wrapper pads any other head
+dim with zeros.
+
 The kernel computes what ``flash_attention_ref`` (the reference's dense
 f32 oracle) computes. It does not copy the Pallas kernel's block skip,
 which ignores ``prefix_len`` and so drops key blocks a prefix makes
@@ -27,7 +34,14 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
+HEAD_DIM_MULTIPLE = 8   # the kernel's TMA rows are whole 16-byte units
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# H100 SXM peaks (NVIDIA's data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
+TF32_PASSES = 3   # 3xTF32: small*big + big*small + big*big
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int):
@@ -72,6 +86,22 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
 
 
+def kernel_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k, v as the kernel takes them: the head dim padded with zeros to
+    a multiple of ``HEAD_DIM_MULTIPLE`` and every base 16-byte aligned (a
+    TMA map's requirement). Zero columns add nothing to q @ k and come out
+    as zero columns of the result, which the wrapper cuts off."""
+    pad = -q.shape[-1] % HEAD_DIM_MULTIPLE
+    out = []
+    for t in (q, k, v):
+        if pad:
+            t = torch.nn.functional.pad(t, (0, pad))
+        elif t.data_ptr() % 16:
+            t = t.clone()
+        out.append(t)
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     prefix_len: int = 0) -> torch.Tensor:
@@ -88,15 +118,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {hd}: the kernel takes at most "
                          f"{MAX_HEAD_DIM}")
-    out = torch.empty_like(q)
+    kq, kk, kv = kernel_operands(q, k, v)
+    out = torch.empty_like(kq)
     if out.numel():
         build.launch("flash_attention", "mgit_flash_attention", q.device,
-                     q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     B, Hq, Hkv, Sq, Skv, hd, int(causal), int(window),
-                     int(prefix_len), float(hd ** -0.5),
-                     _DTYPE_CODES[q.dtype])
+                     kq.data_ptr(), kk.data_ptr(), kv.data_ptr(),
+                     out.data_ptr(), B, Hq, Hkv, Sq, Skv, kq.shape[-1],
+                     int(causal), int(window), int(prefix_len),
+                     float(hd ** -0.5), _DTYPE_CODES[q.dtype])
         build.count_launch(flash_attention)
-    return out
+    return out if kq.shape[-1] == hd else out[..., :hd].contiguous()
 
 
 flash_attention.launches = 0
@@ -117,9 +148,37 @@ def flops(B: int, Hq: int, Sq: int, Skv: int, hd: int, *, causal: bool = True,
     return 4 * B * Hq * hd * int(ok.sum())
 
 
+def roofline(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, hd: int,
+             dtype: torch.dtype, *, causal: bool = True, window: int = 0,
+             prefix_len: int = 0):
+    """(ms, "bytes" or "operations"): the least time an H100 SXM could take
+    for one call, and which of the two bounds it.
+
+    Bytes: q, k, v read once and out written once at the dtype's width,
+    over the device memory rate. Operations: ``flops`` over the visible
+    pairs, at the dense bf16 tensor-core rate for bf16, and as three TF32
+    passes at the TF32 rate for f32 (the cheapest tensor-core route that
+    keeps f32's 2e-5 tolerance, the kernel's)."""
+    ops = flops(B, Hq, Sq, Skv, hd, causal=causal, window=window,
+                prefix_len=prefix_len)
+    if dtype == torch.bfloat16:
+        ops_s = ops / BF16_OPS_PER_S
+    elif dtype == torch.float32:
+        ops_s = TF32_PASSES * ops / TF32_OPS_PER_S
+    else:
+        raise TypeError(f"no bound for {dtype}: the kernel takes float32 "
+                        f"or bfloat16")
+    item = torch.empty((), dtype=dtype).element_size()
+    bytes_s = (2 * B * Hq * Sq + 2 * B * Hkv * Skv) * hd * item \
+        / HBM_BYTES_PER_S
+    return max(bytes_s, ops_s) * 1e3, (
+        "bytes" if bytes_s >= ops_s else "operations")
+
+
 def hbm_bytes(B, Hq, Hkv, Sq, Skv, hd, dtype_bytes=2, qc=512):
     """The reference kernel's HBM traffic contract (per its BlockSpecs): q
-    and out once, k and v once per q block. This kernel's q block is 64."""
+    and out once, k and v once per q block of ``qc`` rows. It describes the
+    Pallas kernel, not this one; ``roofline`` gives this kernel's bound."""
     n_q = max(Sq // min(qc, Sq), 1)
     q_out = 2 * B * Hq * Sq * hd * dtype_bytes
     kv = 2 * B * Hkv * Skv * hd * dtype_bytes * n_q
@@ -127,4 +186,4 @@ def hbm_bytes(B, Hq, Hkv, Sq, Skv, hd, dtype_bytes=2, qc=512):
 
 
 __all__ = ["flash_attention", "flash_attention_ref", "flops", "hbm_bytes",
-           "NEG_INF"]
+           "kernel_operands", "roofline", "NEG_INF"]

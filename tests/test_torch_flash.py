@@ -9,6 +9,11 @@ reference test's (``tests/test_kernels.py``): 2e-5 in f32, 3e-2 in bf16.
 It also pins a reference behaviour: the Pallas kernel's block skip ignores
 ``prefix_len``, so once a prefix-LM prefix reaches past a query block it
 drops key blocks the prefix makes visible. The port follows the oracle.
+
+The kernel's arithmetic plan is checked here by emulation in torch (the
+kernel itself runs only on the card): f32 as three TF32 passes (3xTF32),
+bf16 with scores scaled in f32 after the product and P rounded to bf16
+before P @ V, each against the reference's oracle.
 """
 
 import dataclasses
@@ -155,3 +160,125 @@ def test_flops_count_visible_pairs_and_hbm_bytes_match_reference():
     for args in ((1, 4, 2, 1024, 1024, 64), (2, 8, 8, 512, 512, 128)):
         for qc in (64, 512):
             assert fa.hbm_bytes(*args, qc=qc) == ref_hbm_bytes(*args, qc=qc)
+
+
+def test_roofline_hand_counts():
+    """The bound of one call on an H100 SXM: bytes of q, k, v and out once
+    at 3.35 TB/s against the visible pairs' operations at 989 TFLOP/s
+    (bf16) or as three TF32 passes at 495 TFLOP/s (f32)."""
+    serve = (8, 12, 12, 512, 512, 64)   # paper-bert prefill, causal
+    pairs = 8 * 12 * 512 * 513 // 2
+    assert fa.flops(8, 12, 512, 512, 64) == 4 * 64 * pairs == 3_227_516_928
+    ms, by = fa.roofline(*serve, torch.bfloat16)
+    assert by == "bytes"
+    assert ms == pytest.approx(25_165_824 / 3.35e12 * 1e3)       # 0.0075 ms
+    assert round(ms, 4) == 0.0075
+    ms, by = fa.roofline(*serve, torch.float32)
+    assert by == "operations"
+    assert ms == pytest.approx(3 * 3_227_516_928 / 495e12 * 1e3)  # 0.0196 ms
+    assert round(ms, 4) == 0.0196
+    # qwen3-0.6b's attention at 4096 tokens: operations bound both dtypes
+    qwen = (1, 16, 8, 4096, 4096, 128)
+    ops = 4 * 128 * 16 * 4096 * 4097 // 2
+    assert fa.roofline(*qwen, torch.bfloat16) == (
+        pytest.approx(ops / 989e12 * 1e3), "operations")
+    assert fa.roofline(*qwen, torch.float32) == (
+        pytest.approx(3 * ops / 495e12 * 1e3), "operations")
+    # a window halves nothing here but the visible pairs
+    assert fa.roofline(*serve, torch.float32, window=64)[0] < ms
+    with pytest.raises(TypeError):
+        fa.roofline(*serve, torch.float16)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: f32 rounded to 10 mantissa bits, ties away from
+    zero (add half of the dropped 13 bits' range to the magnitude, then
+    clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def test_tf32_rounding_emulation():
+    half_ulp = 2.0 ** -11          # half of TF32's ulp at 1
+    x = torch.tensor([1 + half_ulp, -(1 + half_ulp), 1 + half_ulp / 2,
+                      1 + 3 * half_ulp, 3.0], dtype=torch.float32)
+    assert _tf32(x).tolist() == [1 + 2 * half_ulp, -(1 + 2 * half_ulp), 1.0,
+                                 1 + 4 * half_ulp, 3.0]
+    big, small = _split(torch.tensor([1 / 3], dtype=torch.float32))
+    assert big.item() != 1 / 3 and abs(big.item() + small.item() - 1 / 3) < 1e-7
+
+
+def _plan_f32(q, k, v, passes):
+    """The f32 kernel's arithmetic on (B, H, S, hd) f32 inputs, causal:
+    scores from ``passes`` TF32 products (3: small*big + big*small +
+    big*big; 1: big*big), scaled in f32, unnormalised p = exp(s - max),
+    P @ V the same way, divided by the row sums of p at the end."""
+    def product(a, b):
+        (ab, as_), (bb, bs) = _split(a), _split(b)
+        if passes == 1:
+            return ab @ bb
+        return as_ @ bb + ab @ bs + ab @ bb
+
+    S, hd = q.shape[-2], q.shape[-1]
+    s = product(q, k.transpose(-1, -2)) * hd ** -0.5
+    ok = torch.ones(S, S, dtype=torch.bool).tril()
+    s = torch.where(ok, s, torch.full_like(s, fa.NEG_INF))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return product(p, v) / p.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_3xtf32_plan_meets_f32_tolerance_and_one_pass_does_not(hd):
+    """Three TF32 passes stay within f32's 2e-5 of the oracle; a single
+    pass keeps about three decimal digits and does not."""
+    q, k, v = _inputs(dict(B=1, Hq=2, Hkv=2, S=512, hd=hd), seed=3)
+    oracle = np.asarray(ref_oracle(*(jnp.asarray(a) for a in (q, k, v)),
+                                   causal=True))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    three = _plan_f32(tq, tk, tv, passes=3).numpy()
+    np.testing.assert_allclose(three, oracle, atol=2e-5)
+    one = _plan_f32(tq, tk, tv, passes=1).numpy()
+    assert np.abs(one - oracle).max() > 2e-5
+
+
+def test_bf16_plan_meets_bf16_tolerance_with_gqa():
+    """bf16 at head_dim 128 with GQA: scores accumulated in f32 from bf16
+    operands and scaled in f32 after the product (hd^-0.5 is no power of
+    two here), P rounded to bf16 for P @ V while the row sums use the f32
+    p: within bf16's 3e-2 of the oracle on the same bf16 inputs."""
+    q, k, v = _inputs(dict(B=1, Hq=4, Hkv=2, S=512, hd=128), seed=4)
+    oracle = ref_oracle(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                        causal=True)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    kf = tk.repeat_interleave(2, dim=1).float()
+    vf = tv.repeat_interleave(2, dim=1).float()
+    s = (tq.float() @ kf.transpose(-1, -2)) * 128 ** -0.5
+    ok = torch.ones(512, 512, dtype=torch.bool).tril()
+    s = torch.where(ok, s, torch.full_like(s, fa.NEG_INF))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = ((p.to(torch.bfloat16).float() @ vf) / p.sum(-1, keepdim=True))
+    np.testing.assert_allclose(_f32(out.to(torch.bfloat16)), _f32(oracle),
+                               atol=3e-2)
+
+
+def test_kernel_operands_pad_head_dim_and_align():
+    """What the wrapper hands the kernel: head dims padded with zeros to a
+    multiple of 8, bases 16-byte aligned, other tensors as they are."""
+    q = torch.randn(1, 2, 5, 20)
+    k = torch.randn(1, 1, 5, 20)
+    kq, kk, kv = fa.kernel_operands(q, k, k)
+    assert kq.shape == (1, 2, 5, 24) and kk.shape == (1, 1, 5, 24)
+    assert torch.equal(kq[..., :20], q) and not kq[..., 20:].any()
+    flat = torch.randn(1 + 2 * 5 * 16)
+    shifted = flat[1:].view(1, 2, 5, 16)   # contiguous, 4 bytes off
+    assert shifted.data_ptr() % 16
+    kq, kk, kv = fa.kernel_operands(shifted, shifted, shifted)
+    assert kq.data_ptr() % 16 == 0 and torch.equal(kq, shifted)
+    aligned = torch.randn(1, 2, 5, 16)
+    assert fa.kernel_operands(aligned, aligned, aligned)[0] is aligned
+
