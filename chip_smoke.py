@@ -20,10 +20,15 @@ exits non-zero on failure:
    within 2e-5 (f32) and 3e-2 (bf16) of its plain version over the
    reference test's five mask specs, a prefix-LM prefix past a query
    tile, ragged lengths, the serving prefill's shape, the qwen3-0.6b
-   geometry at 4096 tokens and a head dim the wrapper pads; times each
-   kernel and its plain version, and flash attention (device time per
-   call, and eager) beside ``scaled_dot_product_attention``, which the
-   port never calls, at the serving shape and the qwen3-0.6b geometry;
+   geometry at 4096 tokens and a head dim the wrapper pads; holds
+   delta_quantize and dequant_apply with float16 operands and results
+   (main-path, ragged and overflowing cases) bit for bit against the plain
+   versions and numpy twins, and ``ops.delta_quantize``'s per-tile zero
+   counts against a numpy count of the reference's tiling; times each
+   kernel (and the two float16 variants) and its plain version, and flash
+   attention (device time per call, and eager) beside
+   ``scaled_dot_product_attention``, which the port never calls, at the
+   serving shape and the qwen3-0.6b geometry;
 4. main path: commits a full-width paper-bert (f32, random weights from a
    seed) lineage base -> ft1 -> ft2 -> ft3 plus task-head (a child of ft1
    with a re-initialised lm_head) through ``ArtifactStore(chunk_threshold=
@@ -42,10 +47,16 @@ exits non-zero on failure:
    8 x 512-token prompts and a ragged batch; two rows are held against
    the port's engine on the host (prefill logits within 1e-3, greedy
    tokens equal except after a near tie);
+4c. float16: base -> ft1 -> ft2 plus task-head, every tensor float16, is
+   committed and checked out through the card's store; its manifest refs
+   and checkouts must equal a host (``backend="ref"``) store's, and a
+   dequant_apply launch must take a float16 operand;
 5. the same lineage with the default chunk threshold, whose large tensors
-   take the host chunk engine: bit-identical checkouts and a clean fsck;
+   take the host chunk engine, cut to its first ``PHASE5_LAYERS`` layers
+   (host work, no kernel): bit-identical checkouts and a clean fsck;
 6. continuous checkpointing: ``Trainer`` trains full-width paper-bert (f32,
-   batch 8, sequence 128) on the card with its default exact-tier
+   batch 8, sequence 128; ``CHECKPOINT_LAYERS`` of its 12 layers) on the
+   card with its default exact-tier
    ``CheckpointManager`` committing every 2 steps: 6 steps in runs of 2
    (each waits for its commit: 3 commits), then one ``run(6)``, whose
    saves come faster than the commits, so at least one coalesces. It
@@ -56,10 +67,24 @@ exits non-zero on failure:
    with the chunk engine off, and restores a lossy step within each
    leaf's quantization step of the live state. The fingerprint kernel
    must launch once per large leaf per save, and dequant_apply in the
-   lossy commits.
+   lossy commits;
+7. the paper's update workflow (Figure 4, Algorithm 2): full-width
+   paper-bert versions made by the port's train step on the card (base;
+   task-a and task-b under it; task-a-sub under task-a) in one
+   ``LineageGraph`` over a ``chunk_threshold=0`` store, each node tested
+   by a probe scored from ``models.prefill`` (flash kernel); a gated
+   ``run_update_cascade`` from base to base@v2 must create the three @v2
+   nodes, quarantine exactly the poisoned task-b@v2 on a metric drop, carry
+   no error in any result and replay with 0 executions; a second cascade
+   whose creation function raises must leave no empty node; ``auto_insert``
+   must place a further finetune of task-b@v2 under it; two disjoint edits
+   of base must merge to their picks bit for bit, two overlapping ones
+   conflict, and ``module_diff`` must agree on card and host checkouts;
+   every new node checks out hash-exact and equal to the host's, with a
+   clean fsck over the models and the test ledger.
 
-Phases 4, 4b and 6 each zero every kernel's launch count just before they
-drive their path and read it just after. The line before last is one
+Phases 4, 4b, 4c, 6 and 7 each zero every kernel's launch count just
+before they drive their path and read it just after. The line before last is one
 JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -87,6 +112,11 @@ EPS = 1e-4
 SRC = "src/repro_torch/kernels/csrc"
 NODES = ("base", "ft1", "ft2", "ft3", "task-head")
 CHECKOUT = ("ft3", "task-head")
+# depths of the host-bound paths, cut to keep the script well inside its
+# time limit: phase 5 (the host chunk engine) and phase 6 (whose first
+# exact commit is a host cut search over the whole train state)
+PHASE5_LAYERS = 2
+CHECKPOINT_LAYERS = 4
 
 
 def fail(msg: str) -> None:
@@ -203,6 +233,8 @@ def same_bits(a, b) -> bool:
         return False
     if a.dtype == torch.float32:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if a.dtype == torch.float16:
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
     return torch.equal(a, b)
 
 
@@ -251,6 +283,7 @@ def check_kernels(gen):
             bad.append(f"{kernel} {label}: differs from its plain version")
         if not same_bits(got.cpu(), twin):
             bad.append(f"{kernel} {label}: differs from the numpy twin")
+    hold.bad = bad
 
     for label, p1, p2 in kernel_cases(gen):
         h1, h2 = p1.cpu().numpy(), p2.cpu().numpy()
@@ -290,6 +323,10 @@ def check_kernels(gen):
         qsum = qs.sum(dim=0, dtype=torch.int32).cpu().numpy()
         hold("chain_apply", label, chained, chained_p,
              torch.from_numpy(host_dequant(h1, qsum, EPS)))
+        if label.startswith(("(12, 768, 3072)", "(257, 33)",
+                             "(768, 30522) overflow")):
+            check_f16(label, p1, p2, hold)
+    check_tile_zeros(gen, bad)
     torch.cuda.synchronize()
     errs["fingerprint"] = check_fingerprint(gen, bad)
     errs["flash_attention"], errs["flash_attention_bf16"] = check_flash(
@@ -304,6 +341,81 @@ def check_kernels(gen):
           f"of its plain version: max |err| {errs['flash_attention']:.3g} "
           f"f32, {errs['flash_attention_bf16']:.3g} bf16", flush=True)
     return errs
+
+
+def check_f16(label, p1, p2, hold):
+    """delta_quantize and dequant_apply with float16 operands (widened in
+    the kernel) and float16 results (rounded in the kernel), against the
+    plain versions and the numpy twins."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.delta_quantize import (delta_quantize_flat,
+                                                    dequant_apply_flat)
+    from repro_torch.store.delta import host_dequant
+
+    scale = np.float32(ref.quant_scale(EPS))
+    a, b = p1.half(), p2.half()
+    ha, hb = a.cpu().numpy(), b.cpu().numpy()
+    q_np = np.floor((ha.astype(np.float32) - hb.astype(np.float32)) / scale
+                    + np.float32(0.5)).astype(np.int32)
+    label = f"{label} f16"
+    q, nz = delta_quantize_flat(a, b, EPS)
+    hold("delta_quantize", label, q, ref.delta_quantize_ref(a, b, EPS)[0],
+         torch.from_numpy(q_np))
+    if int(nz) != int((q_np == 0).sum()):
+        hold.bad.append(f"delta_quantize {label}: zero count {int(nz)}")
+    # mixed operands: f32 parent, f16 child
+    q_mixed, _ = delta_quantize_flat(p1, b, EPS)
+    hold("delta_quantize", f"{label} (f32, f16)", q_mixed,
+         ref.delta_quantize_ref(p1, b, EPS)[0], torch.from_numpy(np.floor(
+             (p1.cpu().numpy() - hb.astype(np.float32)) / scale
+             + np.float32(0.5)).astype(np.int32)))
+    for parent, host_parent, out_dtype in ((a, ha, "float16"),
+                                           (a, ha, "float32"),
+                                           (p1, p1.cpu().numpy(), "float16")):
+        out = dequant_apply_flat(parent, q, EPS, out_dtype=out_dtype)
+        hold("dequant_apply",
+             f"{label} {str(parent.dtype)[6:]} -> {out_dtype}", out,
+             ref.dequant_apply_ref(parent, q, EPS, out_dtype=out_dtype),
+             torch.from_numpy(host_dequant(host_parent, q_np, EPS,
+                                           out_dtype=out_dtype)))
+
+
+def tile_zeros_model(q: "np.ndarray"):
+    """The reference kernel's per-tile zero counts of flat ``q``, in numpy:
+    q zero padded to (rows, 1024), rows = ceil(n / 1024) rounded up to a
+    multiple of 8, in tiles of the first of 256, 128, ..., 8 rows that
+    divides rows (``src/repro/kernels/ops.py``: ``_to_2d``, ``_block_rows``)."""
+    import numpy as np
+    n = q.size
+    rows = -(-n // 8192) * 8
+    block = next(c for c in (256, 128, 64, 32, 16, 8) if rows % c == 0)
+    padded = np.zeros(rows * 1024, np.int32)
+    padded[:n] = q.ravel()
+    return (padded.reshape(-1, block * 1024) == 0).sum(axis=1)
+
+
+def check_tile_zeros(gen, bad):
+    """``ops.delta_quantize(return_block_zeros=True)`` on the card returns
+    the reference's per-tile counts: the main path's largest tensor (108
+    tiles of 256 rows) and a ragged one whose last tile is one real element
+    and 8,191 padding zeros."""
+    import torch
+
+    from repro_torch.kernels import ops
+    for shape in ((12, 768, 3072), (65537,)):
+        p2 = torch.randn(shape, generator=gen, device="cuda") * 0.036
+        p1 = p2 + torch.randn(shape, generator=gen, device="cuda") * 1e-4
+        q, nz, blocks = ops.delta_quantize(p1, p2, EPS,
+                                           return_block_zeros=True)
+        want = tile_zeros_model(q)
+        if (blocks is None or blocks.tolist() != want.tolist()
+                or nz != int((q == 0).sum())):
+            bad.append(f"delta_quantize per-tile zeros {shape}: "
+                       f"{None if blocks is None else blocks[:4]} vs "
+                       f"{want[:4]}")
 
 
 # the reference test's tolerances (tests/test_kernels.py): the kernel sums
@@ -463,6 +575,16 @@ def time_kernels(gen):
             lambda: ref.fingerprint_padded(w2),
             4 * n_w + 16, 12 * n_w, "(12, 768, 3072) f32"),
     }
+    # the f16 instantiations: 2 B per operand, int32 q, f16 out
+    h1h, h2h, w1h = h1.half(), h2.half(), w1.half()
+    rows["delta_quantize_f16"] = (
+        lambda: delta_quantize_flat(h1h, h2h, EPS),
+        lambda: ref.delta_quantize_ref(h1h, h2h, EPS),
+        8 * n_h, 4 * n_h, "(768, 30522) f16")
+    rows["dequant_apply_f16"] = (
+        lambda: dequant_apply_flat(w1h, q_w, EPS),
+        lambda: ref.dequant_apply_ref(w1h, q_w, EPS),
+        8 * n_w, 2 * n_w, "(12, 768, 3072) f16 + int32 -> f16")
     out = {}
     for name, (kernel, plain, nbytes, flops, shape) in rows.items():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -472,6 +594,8 @@ def time_kernels(gen):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "shape": shape}
+    for name in ("delta_quantize", "dequant_apply"):
+        out[name]["f16"] = out.pop(f"{name}_f16")
     out["flash_attention"] = time_flash(gen, SERVE_SHAPE, plain=True)
     out["flash_attention"]["qwen3_0_6b"] = time_flash(gen, QWEN3_SHAPE)
     return out
@@ -585,8 +709,8 @@ def make_lineage(cfg, seed: int):
 
 
 def commit_lineage(root, arch, params, **store_kw):
-    """Commit the lineage through LineageGraph + ArtifactStore; return the
-    store."""
+    """Commit the lineage (the nodes of ``NODES`` that ``params`` holds)
+    through LineageGraph + ArtifactStore; return the store."""
     from repro_torch.convert import to_artifact
     from repro_torch.core import LineageGraph
     from repro_torch.store import ArtifactStore
@@ -595,6 +719,8 @@ def commit_lineage(root, arch, params, **store_kw):
     graph = LineageGraph(path=root, store=store)
     graph.add_node(to_artifact(params["base"], arch), "base")
     for parent, child in (("base", "ft1"), ("ft1", "ft2"), ("ft2", "ft3")):
+        if child not in params:
+            continue
         graph.add_node(None, child, model_type=arch)
         graph.add_version_edge(parent, child)
         graph.add_node(to_artifact(params[child], arch), child)
@@ -709,7 +835,14 @@ def main_path(cfg, params, workdir, card):
 
 
 def chunked_path(cfg, params, workdir):
-    """Phase 5: the same lineage with the default chunk threshold."""
+    """Phase 5: the same lineage with the default chunk threshold, cut to
+    the first ``PHASE5_LAYERS`` of its 12 layers (host work: the chunk
+    engine never reaches a kernel)."""
+    params = {node: {k: v[:PHASE5_LAYERS] if k.startswith("layers/") else v
+                     for k, v in flat.items()}
+              for node, flat in params.items()}
+    print(f"chunked path: depth cut to {PHASE5_LAYERS} of {cfg.n_layers} "
+          f"layers", flush=True)
     root = os.path.join(workdir, "chunked")
     t0 = time.perf_counter()
     store = commit_lineage(root, cfg.name, params)
@@ -726,6 +859,77 @@ def chunked_path(cfg, params, workdir):
         fail("chunked path: no tensor took the chunk engine")
     _, _, host = check_out(root, CHECKOUT, backend="ref")
     verify("chunked path", store2, refs, out, params, reference=host)
+
+
+F16_NODES = ("base", "ft1", "ft2", "task-head")
+F16_CHECKOUT = ("ft2", "task-head")
+
+
+def f16_path(cfg, params, workdir, card):
+    """Phase 4c: phase 4's lineage shape (base -> ft1 -> ft2, task-head
+    under ft1) with every tensor float16, committed and checked out through
+    the card's store; manifest refs and checkouts must equal a host
+    (``backend="ref"``) store's. Returns the launch counts of its run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.common.hashing import tensor_hash
+    from repro_torch.kernels import ops
+
+    half = {n: {k: v.astype(np.float16) for k, v in params[n].items()}
+            for n in F16_NODES}
+    nbytes = sum(v.nbytes for v in half["base"].values())
+    dequant, operands = ops.dequant_apply_flat, []
+
+    def watched(p1, q, eps=1e-4, out_dtype=None):
+        if p1.is_cuda and p1.numel():
+            operands.append(str(p1.dtype).removeprefix("torch."))
+        return dequant(p1, q, eps, out_dtype=out_dtype)
+
+    root, host_root = (os.path.join(workdir, d) for d in ("f16", "f16-host"))
+    zero_launches()
+    ops.dequant_apply_flat = watched
+    try:
+        t0 = time.perf_counter()
+        commit_lineage(root, cfg.name, half, chunk_threshold=0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        store, refs, out = check_out(root, F16_CHECKOUT, chunk_threshold=0)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        ops.dequant_apply_flat = dequant
+    launches = read_launches()
+    commit_lineage(host_root, cfg.name, half, chunk_threshold=0,
+                   backend="ref")
+    _, host_refs, host = check_out(host_root, F16_CHECKOUT,
+                                   chunk_threshold=0, backend="ref")
+    if refs != host_refs:
+        fail(f"f16 path: manifest refs {refs} differ from the host's "
+             f"{host_refs}")
+    for node, tensors in out.items():
+        manifest = store.get_manifest(refs[node])["params"]
+        for key, value in tensors.items():
+            value = np.asarray(value)
+            if (value.dtype != np.float16 or not np.isfinite(value).all()
+                    or tensor_hash(value) != manifest[key]["hash"]
+                    or not np.array_equal(value.view(np.uint16), np.asarray(
+                        host[node][key]).view(np.uint16))):
+                fail(f"f16 path: {node}:{key} is not its manifest's and the "
+                     f"host's float16 tensor")
+    report = store.fsck(list(refs.values()))
+    if not report["ok"]:
+        fail(f"f16 path: fsck is not clean: {report}")
+    print(f"f16 path: {cfg.name} f16 ({nbytes} bytes per model), "
+          f"{len(F16_NODES)} models committed in {t1 - t0:.3f} s, "
+          f"{'+'.join(F16_CHECKOUT)} checked out in {t2 - t1:.3f} s, "
+          f"compression ratio {store.compression_ratio():.3f}; manifest refs "
+          f"and checkouts equal the host store's, fsck clean; dequant_apply "
+          f"operands {json.dumps(sorted(set(operands)))}, launches "
+          f"{json.dumps(launches)} ({card})", flush=True)
+    if launches["dequant_apply"] == 0 or "float16" not in operands:
+        fail("f16 path: no dequant_apply launch with a float16 operand")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1131,13 +1335,18 @@ def train(tr, steps, every=2):
 
 
 def checkpoint_path(cfg, workdir, card, seed):
-    """Phase 6. Returns the launch counts of its run."""
+    """Phase 6, at full width and ``CHECKPOINT_LAYERS`` of the 12 layers.
+    Returns the launch counts of its run."""
     import torch
 
     from repro_torch.common.tree import leaves
     from repro_torch.obs import reset_trace, tracing
     from repro_torch.store import CKPT_STATS, CheckpointManager, flatten_state
     from repro_torch.train import Trainer
+
+    print(f"checkpoint: depth cut to {CHECKPOINT_LAYERS} of {cfg.n_layers} "
+          f"layers", flush=True)
+    cfg = dataclasses.replace(cfg, n_layers=CHECKPOINT_LAYERS)
 
     fp = wrappers()["fingerprint"]
     zero_launches()
@@ -1276,6 +1485,421 @@ def checkpoint_path(cfg, workdir, card, seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the paper's update workflow (Figure 4, Algorithm 2) at full width
+# ---------------------------------------------------------------------------
+
+WORKFLOW_STEPS = 2       # train steps that make each model version
+PROBE_BATCH, PROBE_SEQ = 8, 128
+# an honest version (a few train steps on another seed) moves the probe's
+# loss by far less than this many nats; the poisoned lm_head (x 100)
+# moves it by hundreds
+GATE_TOL = 0.5
+WORKFLOW_ARCH = "paper-bert"
+
+
+def workflow_config():
+    from repro_torch.models import get_config
+    return dataclasses.replace(get_config(WORKFLOW_ARCH), dtype="float32")
+
+
+def probe_score(model) -> float:
+    """The registered test of every node: the negated mean next-token loss
+    of a fixed probe batch (8 prompts of 128 tokens, each scored on its
+    129th), from ``models.prefill`` logits on the card, so the flash
+    kernel runs inside the diagnostics."""
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import to_params
+    from repro_torch.models import prefill
+    from repro_torch.train.step import cross_entropy
+    cfg = workflow_config()
+    tokens = torch.from_numpy(np.random.default_rng(2024).integers(
+        0, cfg.vocab_size, (PROBE_BATCH, PROBE_SEQ + 1))).to("cuda")
+    params = to_params(model.params, "cuda")
+    with torch.inference_mode():
+        logits, _ = prefill(cfg, params, {"tokens": tokens[:, :-1]},
+                            PROBE_SEQ)
+        return -float(cross_entropy(logits[:, None], tokens[:, -1:]))
+
+
+def train_flat(cfg, flat, seed, device="cuda"):
+    """{key: f32 numpy}: ``flat`` (a model's params, or None for a fresh
+    init from ``seed``) after ``WORKFLOW_STEPS`` steps of the port's train
+    step on ``device`` (batch 8, sequence 128, AdamW without warmup)."""
+    import torch
+
+    from repro_torch.convert import to_numpy, to_params
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models.model import flat_paths
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import init_state, make_train_step
+
+    if flat is None:
+        state = init_state(cfg, seed=seed, device=device)
+    else:
+        params = to_params(dict(flat.items()), device)
+        state = {"params": params, "opt": adamw.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=device)}
+    step = make_train_step(cfg, adamw.AdamWConfig(warmup_steps=0))
+    pipe = SyntheticPipeline(cfg, batch=8, seq=128, seed=seed, device=device)
+    for _ in range(WORKFLOW_STEPS):
+        state, metrics = step(state, next(pipe))
+        if not math.isfinite(float(metrics["loss"])):
+            fail(f"workflow: training loss {float(metrics['loss'])}")
+    return {k: to_numpy(v) for k, v in flat_paths(state["params"]).items()}
+
+
+def workflow_types():
+    """The creation function of every derived node, registered by name as
+    ``examples/finetune_cascade.py`` registers its own: train the parent
+    for ``WORKFLOW_STEPS`` steps on the task's seed. ``poison`` multiplies
+    lm_head by 100 (a regression by construction); ``boom`` raises."""
+    from repro_torch.convert import to_artifact
+    from repro_torch.core import CreationFunction, register_creation_type
+
+    @register_creation_type("smoke-finetune")
+    class Finetune(CreationFunction):
+        seconds = 0.0
+
+        def __call__(self, parents):
+            t0 = time.perf_counter()
+            if self.config.get("boom"):
+                raise RuntimeError(f"creation function of seed "
+                                   f"{self.config['seed']} failed")
+            flat = train_flat(workflow_config(), parents[0].get_model().params,
+                              self.config["seed"])
+            if self.config.get("poison"):
+                flat["lm_head"] = flat["lm_head"] * 100
+            Finetune.seconds += time.perf_counter() - t0
+            return to_artifact(flat, WORKFLOW_ARCH)
+
+    return Finetune
+
+
+def edit_of(parent, keys, gen, layers=None):
+    """{key: f32 numpy}: ``parent`` with phase 4's sparse finetune noise on
+    ``keys`` only, on their first ``layers`` rows when given."""
+    import numpy as np
+    out = {k: np.asarray(v) for k, v in parent.items()}
+    for k in keys:
+        value = out[k].copy()
+        part = value[:layers] if layers else value
+        part[...] = finetune({k: part}, 1e-4, gen)[k]
+        out[k] = value
+    return out
+
+
+def _result_errors(runner):
+    return [(r.get("node"), r.get("test"), r["error"])
+            for r in runner.ledger.entries() if r.get("error") is not None]
+
+
+def workflow_cascade(g, Finetune, gate, runner, seed):
+    """Step 3: the gated update cascade base -> base@v2. Prints its
+    seconds split into creation functions, commits and gate; returns the
+    new names and the cascade's seconds."""
+    import torch
+
+    from repro_torch.convert import to_artifact
+    from repro_torch.diag import is_quarantined
+    from repro_torch.obs import reset_trace, tracing
+
+    old = {n: g.nodes[n].artifact_ref for n in g.nodes}
+    g.nodes["task-b"].creation_fn.config["poison"] = True
+    g.add_node(to_artifact(train_flat(workflow_config(), g.get_model(
+        "base").params, seed + 20), WORKFLOW_ARCH), "base@v2")
+    g.add_version_edge("base", "base@v2")
+    gate_s = [0.0]
+    apply = gate.apply
+
+    def timed_apply(node):
+        t0 = time.perf_counter()
+        try:
+            return apply(node)
+        finally:
+            gate_s[0] += time.perf_counter() - t0
+    gate.apply = timed_apply
+    Finetune.seconds = 0.0
+    with tracing():
+        reset_trace()
+        t0 = time.perf_counter()
+        created = g.run_update_cascade("base", "base@v2", gate=gate)
+        torch.cuda.synchronize()
+        cascade_s = time.perf_counter() - t0
+        commit_s = sum(_span_seconds("store.commit"))
+    gate.apply = apply
+    want = ["task-a@v2", "task-b@v2", "task-a-sub@v2"]
+    if sorted(created) != sorted(want) or \
+            g.nodes["task-a-sub@v2"].parents != ["task-a@v2"]:
+        fail(f"workflow cascade: created {created}, task-a-sub@v2's parents "
+             f"{g.nodes.get('task-a-sub@v2') and g.nodes['task-a-sub@v2'].parents}")
+    quarantined = sorted(n for n in g.nodes if is_quarantined(g.nodes[n]))
+    decision = {d.node: d for d in gate.decisions}
+    kinds = [(r.kind, r.error) for r in decision["task-b@v2"].regressions]
+    if quarantined != ["task-b@v2"] or kinds != [("metric_drop", None)]:
+        fail(f"workflow cascade: quarantined {quarantined}, task-b@v2's "
+             f"regressions {kinds}")
+    errors = _result_errors(runner)
+    if errors:
+        fail(f"workflow cascade: test results with errors {errors}")
+    if any(g.nodes[n].artifact_ref != ref for n, ref in old.items()):
+        fail("workflow cascade: an old version's manifest changed")
+    values = {d.node: {t: r.value for t, r in d.results.items()}
+              for d in gate.decisions}
+    baselines = {n: runner.run_one(g.nodes[n], g.tests[0]).value
+                 for n in ("task-a", "task-b", "task-a-sub")}
+    spread = max(abs(values[f"{n}@v2"]["probe"] - baselines[n])
+                 for n in ("task-a", "task-a-sub"))
+    print(f"workflow cascade: created {created} in {cascade_s:.3f} s "
+          f"(creation functions {Finetune.seconds:.3f} s, commits "
+          f"{commit_s:.3f} s including their tests, gate "
+          f"{gate_s[0]:.3f} s); quarantined {quarantined} "
+          f"({decision['task-b@v2'].regressions[0].to_json()}); probe "
+          f"scores {json.dumps(values)}, old versions "
+          f"{json.dumps(baselines)}; honest versions moved by at most "
+          f"{spread:.6f} (gate tol {GATE_TOL})", flush=True)
+    if spread >= GATE_TOL:
+        fail(f"workflow cascade: honest versions moved by {spread}")
+    executed, hits = runner.stats["executed"], runner.stats["memo_hits"]
+    for n in created:
+        gate.check(n)
+    if runner.stats["executed"] != executed or runner.stats["memo_hits"] <= hits:
+        fail(f"workflow cascade: the repeated gate check executed "
+             f"{runner.stats['executed'] - executed} tests")
+    print(f"workflow cascade: the repeated gate check executed 0 tests "
+          f"({runner.stats['memo_hits'] - hits} memo hits)", flush=True)
+    return created, cascade_s
+
+
+def workflow_rollback(g, root, Finetune, seed):
+    """Step 4: a cascade base@v2 -> base@v3 whose third creation function
+    raises must leave no empty node behind in the persisted lineage."""
+    from repro_torch.convert import to_artifact
+    from repro_torch.core import LineageGraph
+
+    g.add_node(to_artifact(train_flat(workflow_config(), g.get_model(
+        "base@v2").params, seed + 30), WORKFLOW_ARCH), "base@v3")
+    g.add_version_edge("base@v2", "base@v3")
+    g.nodes["task-a-sub@v2"].creation_fn = Finetune(seed=seed + 13,
+                                                    boom=True)
+    t0 = time.perf_counter()
+    try:
+        g.run_update_cascade("base@v2", "base@v3",
+                             skip_fn=lambda n: n.name == "task-b@v2")
+    except RuntimeError as exc:
+        raised = str(exc)
+    else:
+        fail("workflow rollback: the raising creation function did not "
+             "propagate")
+    rollback_s = time.perf_counter() - t0
+    reloaded = LineageGraph(path=root, store=g.store)
+    empty = sorted(n for n, node in reloaded.nodes.items()
+                   if node.artifact_ref is None)
+    if empty or "task-a-sub@v3" in reloaded.nodes or \
+            "task-a@v3" not in reloaded.nodes:
+        fail(f"workflow rollback: empty nodes {empty}, nodes "
+             f"{sorted(reloaded.nodes)}")
+    refs = [n.artifact_ref for n in reloaded.nodes.values()]
+    report = reloaded.store.fsck(refs)
+    if not report["ok"]:
+        fail(f"workflow rollback: fsck {report}")
+    print(f"workflow rollback: '{raised}' propagated after "
+          f"{rollback_s:.3f} s; task-a@v3 kept, no empty node in the "
+          f"reloaded lineage ({len(reloaded.nodes)} nodes), fsck clean",
+          flush=True)
+
+
+def workflow_merge_diff(g, root, seed):
+    """Step 5: merge two disjoint edits of base, a conflicting pair, and
+    diff on the card against the host."""
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import to_artifact
+    from repro_torch.core import (CONFLICT, NO_CONFLICT, LineageGraph, merge,
+                                  merge_artifacts, module_diff)
+    from repro_torch.core.merge import compute_changeset
+    from repro_torch.store import ArtifactStore
+
+    gen = torch.Generator().manual_seed(seed + 40)
+    base = g.get_model("base").params
+    trunk = [k for k in base if k.startswith("layers/")]
+    # edit-b changes the token embedding: a contextual hash never sees
+    # the content of a key without a "/" (lm_head, final_norm), in the
+    # reference as here, so a lm_head-only edit would merge as no change
+    edits = {"edit-a": edit_of(base, trunk, gen, layers=6),
+             "edit-b": edit_of(base, ["embed/tok"], gen)}
+    for name, flat in edits.items():
+        g.add_node(to_artifact(flat, WORKFLOW_ARCH), name)
+        g.add_edge("base", name)
+    # merge what the store holds: a graph reloaded from lineage.json
+    # checks every model out of the phase's store
+    fresh = LineageGraph(path=root, store=g.store)
+    fresh.tests = list(g.tests)
+    t0 = time.perf_counter()
+    result = merge(fresh, "edit-a", "edit-b",
+                   test_threshold=-2 * math.log(workflow_config().vocab_size))
+    merge_s = time.perf_counter() - t0
+    if result.status != NO_CONFLICT or "merge(edit-a,edit-b)" not in fresh:
+        fail(f"workflow merge: {result.status} ({result.detail}), "
+             f"{result.test_results}")
+    picks = {"edit-a": trunk, "edit-b": ["embed/tok"]}
+    for key, value in result.merged.params.items():
+        src = next((n for n, keys in picks.items() if key in keys), "base")
+        want = np.asarray(fresh.get_model(src).params[key])
+        if not np.array_equal(np.asarray(value).view(np.int32),
+                              want.view(np.int32)):
+            fail(f"workflow merge: {key} is not {src}'s")
+    ancestor = fresh.get_model("base")
+    edit_c = to_artifact(edit_of(ancestor.params, ["layers/attn/wq"], gen,
+                                 layers=1), WORKFLOW_ARCH)
+    conflict = merge_artifacts(ancestor, fresh.get_model("edit-a"), edit_c)
+    if conflict.status != CONFLICT or "layers/attn" not in \
+            conflict.conflicting_layers:
+        fail(f"workflow merge: a pair that both change layer 0 gave "
+             f"{conflict.status} {conflict.conflicting_layers}")
+    print(f"workflow merge: edit-a (first 6 encoder layers) + edit-b "
+          f"(token embedding) -> {result.status} ({result.detail}, probe "
+          f"{json.dumps(result.test_results)}) in {merge_s:.3f} s, every "
+          f"merged tensor is its pick bit for bit; edit-a + a layer-0 "
+          f"edit -> {conflict.status} {conflict.conflicting_layers}",
+          flush=True)
+
+    # diff on the card's checkouts against the host's
+    summaries = {}
+    for label, kw in (("card", {}), ("host", {"backend": "ref"})):
+        store = ArtifactStore(root=root, chunk_threshold=0, **kw)
+        a, b = (store.materialize_artifact(g.nodes[n].artifact_ref)
+                for n in ("base", "task-a"))
+        for art in (a, b):
+            art.param_hashes(recompute=True)
+        summaries[label] = {
+            mode: (d.matched_nodes, d.add_nodes, d.del_nodes, d.divergence)
+            for mode, d in ((m, module_diff(a, b, mode=m))
+                            for m in ("structural", "contextual"))}
+        summaries[label]["changed"] = sorted(compute_changeset(a, b).changed)
+    if summaries["card"] != summaries["host"]:
+        fail(f"workflow diff: card {summaries['card']} vs host "
+             f"{summaries['host']}")
+    print(f"workflow diff: base -> task-a equal on card and host checkouts: "
+          f"{json.dumps(summaries['card'])}", flush=True)
+    return merge_s
+
+
+def workflow_auto_insert(g, seed):
+    """Step 6: a further finetune of task-b@v2, made outside the graph,
+    must be inserted under task-b@v2."""
+    from repro_torch.convert import to_artifact
+    from repro_torch.core import auto_insert
+
+    art = to_artifact(train_flat(workflow_config(), g.get_model(
+        "task-b@v2").params, seed + 50), WORKFLOW_ARCH)
+    n = len(g.nodes)
+    t0 = time.perf_counter()
+    parent = auto_insert(g, art, "task-b-ft")
+    auto_s = time.perf_counter() - t0
+    if parent != "task-b@v2":
+        fail(f"workflow auto_insert: chose {parent}, not task-b@v2")
+    print(f"workflow auto_insert: parent task-b@v2 chosen among {n} nodes "
+          f"in {auto_s:.3f} s (every node checked out and diffed)",
+          flush=True)
+    return auto_s
+
+
+def workflow_checkout(root, names):
+    """Step 7: a fresh store checks out every new node, hash-exact and
+    equal to the host's checkout; fsck is clean with the ledger in it."""
+    import numpy as np
+
+    from repro_torch.common.hashing import tensor_hash
+    from repro_torch.core import LineageGraph
+    from repro_torch.store import ArtifactStore
+
+    store = ArtifactStore(root=root, chunk_threshold=0)
+    host = ArtifactStore(root=root, chunk_threshold=0, backend="ref")
+    g = LineageGraph(path=root, store=store)
+    t0 = time.perf_counter()
+    for name in names:
+        ref = g.nodes[name].artifact_ref
+        manifest = store.get_manifest(ref)["params"]
+        got = store.materialize_artifact(ref).params
+        want = host.materialize_artifact(ref).params
+        for key, value in got.items():
+            value = np.asarray(value)
+            if tensor_hash(value) != manifest[key]["hash"] or \
+                    not np.array_equal(value.view(np.int32),
+                                       np.asarray(want[key]).view(np.int32)):
+                fail(f"workflow checkout: {name}:{key} differs from its "
+                     f"manifest or the host's checkout")
+    checkout_s = time.perf_counter() - t0
+    refs = [n.artifact_ref for n in g.nodes.values()]
+    report = store.fsck(refs)
+    ledger = [k for k in store.cas.keys() if k.startswith("t_")]
+    if not report["ok"] or not ledger:
+        fail(f"workflow checkout: fsck "
+             f"{ {k: report[k] for k in ('ok', 'corrupt', 'missing_objects', 'refcount_drift')} }, "
+             f"{len(ledger)} ledger entries")
+    print(f"workflow checkout: {len(names)} new nodes checked out on the "
+          f"card and the host in {checkout_s:.3f} s, hash-exact and equal; "
+          f"fsck clean over {len(refs)} models and {len(ledger)} ledger "
+          f"entries; compression ratio {store.compression_ratio():.3f}",
+          flush=True)
+
+
+def workflow_path(workdir, card, seed):
+    """Phase 7. Returns the launch counts of its run."""
+    import torch
+
+    from repro_torch.convert import to_artifact
+    from repro_torch.core import LineageGraph
+    from repro_torch.diag import DiagnosticsRunner, TestGate
+    from repro_torch.store import ArtifactStore
+
+    cfg = workflow_config()
+    Finetune = workflow_types()
+    root = os.path.join(workdir, "workflow")
+    zero_launches()
+    t0 = time.perf_counter()
+    # a tensor cache that holds a few models (the default holds 256 MiB,
+    # less than one): the gate checks out each new version and its
+    # version parent, which share most of their delta chain
+    g = LineageGraph(path=root, store=ArtifactStore(
+        root=root, chunk_threshold=0, cache_budget_bytes=4 * 2**30))
+    g.register_test_function(probe_score, "probe", mt=cfg.name)
+    g.add_node(to_artifact(train_flat(cfg, None, seed), cfg.name), "base")
+    for name, parent, task_seed in (("task-a", "base", 1), ("task-b", "base", 2),
+                                    ("task-a-sub", "task-a", 3)):
+        fn = Finetune(seed=seed + task_seed)
+        g.add_node(fn([g.nodes[parent]]), name, cr=fn)
+        g.add_edge(parent, name)
+    print(f"workflow: {cfg.name} f32 lineage base -> task-a -> task-a-sub, "
+          f"base -> task-b in {time.perf_counter() - t0:.3f} s ({card})",
+          flush=True)
+    runner = DiagnosticsRunner(g)
+    gate = TestGate(graph=g, runner=runner, tol=GATE_TOL)
+    created, cascade_s = workflow_cascade(g, Finetune, gate, runner, seed)
+    workflow_rollback(g, root, Finetune, seed)
+    auto_s = workflow_auto_insert(g, seed)
+    merge_s = workflow_merge_diff(g, root, seed)
+    workflow_checkout(root, created + ["task-a@v3", "task-b-ft",
+                                       "merge(edit-a,edit-b)"])
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"workflow: phase took {phase_s:.3f} s (cascade {cascade_s:.3f} s, "
+          f"auto_insert {auto_s:.3f} s, merge {merge_s:.3f} s); launches "
+          f"{json.dumps(launches)}; delta_quantize "
+          f"{'launched: the poisoned commit overflowed int8' if launches['delta_quantize'] else 'not launched: no commit overflowed int8'}",
+          flush=True)
+    missing = [k for k in ("snapshot_fused", "dequant_apply", "chain_apply",
+                           "flash_attention") if launches[k] == 0]
+    if missing:
+        fail(f"workflow launched no {', '.join(missing)} kernel")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1330,10 +1954,12 @@ def main() -> int:
     try:
         launches = {"lineage": main_path(cfg, params, workdir, card)}
         launches["serving"] = serving_path(cfg, workdir, args.seed)
+        launches["lineage_f16"] = f16_path(cfg, params, workdir, card)
         chunked_path(cfg, params, workdir)
         del params
         launches["checkpoint"] = checkpoint_path(cfg, workdir, card,
                                                  args.seed)
+        launches["workflow"] = workflow_path(workdir, card, args.seed)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1363,6 +1989,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"]})
+        if "f16" in t:
+            kernels[-1]["f16"] = t["f16"]
         if name == "flash_attention":
             kernels[-1].update(
                 {key: t[key] for key in (
@@ -1379,6 +2007,11 @@ def main() -> int:
               f"{library}), "
               f"{k['launches']} launches on the main paths "
               f"{json.dumps(k['launches_by_path'])}", flush=True)
+        if "f16" in k:
+            f = k["f16"]
+            print(f"kernel {k['name']} f16: {f['ms']:.4f} ms at {f['shape']} "
+                  f"(bound {f['bound_ms']:.4f} ms, plain "
+                  f"{f['plain_ms']:.4f} ms)", flush=True)
     flash = timing["flash_attention"]
     for label, t in (("serving", flash), ("qwen3-0.6b", flash["qwen3_0_6b"])):
         for dt, tag in (("f32", ""), ("bf16", "_bf16")):

@@ -356,6 +356,13 @@ class LineageGraph:
             node.artifact = None
             self.store.release(old_ref)
             self.store.gc()
+        else:
+            # the delta was refused (no saving, or a registered test moved
+            # by more than t_thr), so the re-commit stored the same full
+            # manifest and took a second reference to it and its objects:
+            # give that one back. The reference package keeps it, and its
+            # fsck then reports refcount drift.
+            self.store.release(old_ref)
 
     def remove_edge(self, x: str, y: str, type: str = "provenance") -> None:
         xn, yn = self.nodes[x], self.nodes[y]

@@ -38,8 +38,9 @@ _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 # every entry point returns the launch's cudaError_t as an int)
 SIGNATURES = {
     "delta_quantize": {
-        "mgit_delta_quantize": (_P, _P, _P, _P, _I64, _F32, _I32, _P),
-        "mgit_dequant_apply": (_P, _P, _P, _I64, _F32, _I32, _P),
+        "mgit_delta_quantize": (_P, _I32, _P, _I32, _P, _P, _I64, _I64, _F32,
+                                _I32, _P),
+        "mgit_dequant_apply": (_P, _I32, _P, _P, _I32, _I64, _F32, _I32, _P),
     },
     "snapshot_fused": {
         "mgit_snapshot_fused": (_P, _P, _P, _P, _I64, _F32, _I32, _P),
@@ -179,14 +180,20 @@ def on_card(*tensors: torch.Tensor) -> bool:
     return True
 
 
-def require_dtype(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
-    if t.dtype == dtype:
+def require_dtype(dtype: torch.dtype, allowed: Sequence[torch.dtype],
+                  what: str) -> None:
+    """Raise unless ``dtype`` is one of ``allowed``: NotImplementedError for
+    a float type a float kernel does not take (bfloat16 names the ROADMAP
+    item it waits for), TypeError for anything else."""
+    if dtype in allowed:
         return
-    if dtype == torch.float32:
+    names = " and ".join(str(a).removeprefix("torch.") for a in allowed)
+    if dtype.is_floating_point and any(a.is_floating_point for a in allowed):
+        waits = (f"; bfloat16 waits for the ROADMAP item '{BF16_ITEM}'"
+                 if dtype == torch.bfloat16 else "")
         raise NotImplementedError(
-            f"{what} is {t.dtype}: the CUDA kernels take float32 only; other "
-            f"float types wait for the ROADMAP item '{BF16_ITEM}'")
-    raise TypeError(f"{what} is {t.dtype}, expected {dtype}")
+            f"{what} is {dtype}: this CUDA kernel takes {names}{waits}")
+    raise TypeError(f"{what} is {dtype}, expected {names}")
 
 
 _count_lock = threading.Lock()

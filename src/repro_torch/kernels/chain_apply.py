@@ -28,8 +28,8 @@ def chain_apply_flat(base: torch.Tensor, qs: torch.Tensor, eps: float = 1e-4
                          f"{tuple(base.shape)} deltas")
     if not build.on_card(base, qs):
         return chain_apply_ref(base, qs, eps)
-    build.require_dtype(base, torch.float32, "base")
-    build.require_dtype(qs, torch.int32, "qs")
+    build.require_dtype(base.dtype, (torch.float32,), "base")
+    build.require_dtype(qs.dtype, (torch.int32,), "qs")
     out = torch.empty(base.shape, dtype=torch.float32, device=base.device)
     if out.numel():
         build.launch("chain_apply", "mgit_chain_apply", base.device,

@@ -4,54 +4,137 @@
 //   repro/kernels/delta_quantize.py::delta_quantize_2d (_delta_quantize_kernel)
 //   repro/kernels/delta_quantize.py::dequant_apply_2d  (_dequant_apply_kernel)
 //
-// Bound by bytes: quantize reads two f32 and writes one int32 per element
-// (12 B) for four operations; dequant reads an f32 and an int32 and writes
-// an f32 (12 B) for three. The TPU versions pad to (rows, 1024) tiles and
-// reduce zero counts per tile; here the tensor stays flat, the loop bound
-// masks the tail, and the zero count is one counter per launch, so the
-// count equals the reference's padding-corrected sum.
+// Both take float32 or float16 operands and widen them to f32 in registers
+// (exact), as the TPU kernels widen their tiles; dequant narrows its f32
+// result to the output type with round-to-nearest-even in the kernel.
+//
+// Bound by bytes: quantize reads two operands and writes one int32 per
+// element (12 B in f32, 8 B in f16) for four operations; dequant reads an
+// operand and an int32 and writes the output (12 B f32 -> f32, 8 B
+// f16 -> f16) for three. The TPU versions pad to (rows, 1024) tiles and
+// reduce one zero count per tile of block_rows x 1024 elements. Here the
+// tensor stays flat and the tail is masked; each block walks one
+// contiguous span of the tensor and adds its zeros to the counter of each
+// tile it touches (one atomicAdd per block per tile). The wrapper passes
+// the reference's tile size, or a size past n for one total; padding zeros
+// are added on the host.
+#include <cuda_fp16.h>
+
 #include "common.cuh"
 
-__global__ void delta_quantize_kernel(const float* __restrict__ p1,
-                                      const float* __restrict__ p2,
+// Operand type codes of the C entry points.
+enum : int { kF32 = 0, kF16 = 1 };
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+
+__device__ __forceinline__ void narrow(float x, float* out) { *out = x; }
+__device__ __forceinline__ void narrow(float x, __half* out) { *out = __float2half_rn(x); }
+
+template <typename T1, typename T2>
+__global__ void delta_quantize_kernel(const T1* __restrict__ p1,
+                                      const T2* __restrict__ p2,
                                       int32_t* __restrict__ q,
-                                      int* __restrict__ zeros, int64_t n,
-                                      float scale) {
+                                      int* __restrict__ tile_zeros, int64_t n,
+                                      int64_t span, int64_t tile, float scale) {
+  // span and tile are multiples of blockDim.x (or tile >= n), so every
+  // blockDim-wide step of the walk lies in one tile and the tile changes
+  // at the same step for every thread of the block
+  const int64_t begin = (int64_t)blockIdx.x * span;
+  const int64_t end = begin + span < n ? begin + span : n;
+  int64_t cur = begin / tile;
   int nz = 0;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const int v = quantize(p1[i], p2[i], scale);
-    q[i] = v;
-    nz += (v == 0);
+  for (int64_t base = begin; base < end; base += blockDim.x) {
+    if (base / tile != cur) {
+      block_count_add(nz, 0, tile_zeros + cur, nullptr);
+      __syncthreads();  // the block's partials are reused by the next add
+      cur = base / tile;
+      nz = 0;
+    }
+    const int64_t i = base + threadIdx.x;
+    if (i < end) {
+      const int v = quantize(widen(p1[i]), widen(p2[i]), scale);
+      q[i] = v;
+      nz += (v == 0);
+    }
   }
-  block_count_add(nz, 0, zeros, nullptr);
+  block_count_add(nz, 0, tile_zeros + cur, nullptr);
 }
 
-__global__ void dequant_apply_kernel(const float* __restrict__ p1,
+template <typename T, typename TOut>
+__global__ void dequant_apply_kernel(const T* __restrict__ p1,
                                      const int32_t* __restrict__ q,
-                                     float* __restrict__ out, int64_t n,
+                                     TOut* __restrict__ out, int64_t n,
                                      float scale) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    out[i] = dequantize(p1[i], q[i], scale);
+    narrow(dequantize(widen(p1[i]), q[i], scale), out + i);
   }
 }
 
-// q = floor((p1 - p2) / scale + 0.5); *zeros += count(q == 0).
-// *zeros must hold 0 before the launch.
-extern "C" int mgit_delta_quantize(const float* p1, const float* p2, int32_t* q,
-                                   int* zeros, int64_t n, float scale,
+template <typename T1, typename T2>
+static void launch_quantize(const void* p1, const void* p2, int32_t* q,
+                            int* tile_zeros, int64_t n, int64_t tile,
+                            float scale, int device, cudaStream_t stream) {
+  const int64_t blocks = grid_for(n, device);
+  int64_t span = (n + blocks - 1) / blocks;
+  span = (span + kThreads - 1) / kThreads * kThreads;
+  const int grid = (int)((n + span - 1) / span);
+  delta_quantize_kernel<T1, T2><<<grid, kThreads, 0, stream>>>(
+      (const T1*)p1, (const T2*)p2, q, tile_zeros, n, span, tile, scale);
+}
+
+template <typename T, typename TOut>
+static void launch_dequant(const void* p1, const int32_t* q, void* out,
+                           int64_t n, float scale, int device,
+                           cudaStream_t stream) {
+  dequant_apply_kernel<T, TOut><<<grid_for(n, device), kThreads, 0, stream>>>(
+      (const T*)p1, q, (TOut*)out, n, scale);
+}
+
+// q = floor((f32(p1) - f32(p2)) / scale + 0.5); tile_zeros[i / tile] +=
+// count(q[i] == 0). p1_type and p2_type are kF32 or kF16. tile is a
+// multiple of 256, or at least n (one counter). tile_zeros must hold 0s
+// before the launch.
+extern "C" int mgit_delta_quantize(const void* p1, int p1_type, const void* p2,
+                                   int p2_type, int32_t* q, int* tile_zeros,
+                                   int64_t n, int64_t tile, float scale,
                                    int device, cudaStream_t stream) {
   cudaSetDevice(device);
-  delta_quantize_kernel<<<grid_for(n, device), kThreads, 0, stream>>>(p1, p2, q, zeros, n, scale);
+  if (n <= 0 || tile <= 0 || (tile < n && tile % kThreads != 0)) return (int)cudaErrorInvalidValue;
+  const int pair = p1_type * 2 + p2_type;
+  if (pair == kF32 * 2 + kF32) {
+    launch_quantize<float, float>(p1, p2, q, tile_zeros, n, tile, scale, device, stream);
+  } else if (pair == kF32 * 2 + kF16) {
+    launch_quantize<float, __half>(p1, p2, q, tile_zeros, n, tile, scale, device, stream);
+  } else if (pair == kF16 * 2 + kF32) {
+    launch_quantize<__half, float>(p1, p2, q, tile_zeros, n, tile, scale, device, stream);
+  } else if (pair == kF16 * 2 + kF16) {
+    launch_quantize<__half, __half>(p1, p2, q, tile_zeros, n, tile, scale, device, stream);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
-// out = p1 - f32(q) * scale.
-extern "C" int mgit_dequant_apply(const float* p1, const int32_t* q, float* out,
-                                  int64_t n, float scale, int device,
-                                  cudaStream_t stream) {
+// out = narrow(f32(p1) - f32(q) * scale) to out_type, rounding to nearest
+// even. p1_type and out_type are kF32 or kF16.
+extern "C" int mgit_dequant_apply(const void* p1, int p1_type, const int32_t* q,
+                                  void* out, int out_type, int64_t n,
+                                  float scale, int device, cudaStream_t stream) {
   cudaSetDevice(device);
-  dequant_apply_kernel<<<grid_for(n, device), kThreads, 0, stream>>>(p1, q, out, n, scale);
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const int pair = p1_type * 2 + out_type;
+  if (pair == kF32 * 2 + kF32) {
+    launch_dequant<float, float>(p1, q, out, n, scale, device, stream);
+  } else if (pair == kF32 * 2 + kF16) {
+    launch_dequant<float, __half>(p1, q, out, n, scale, device, stream);
+  } else if (pair == kF16 * 2 + kF32) {
+    launch_dequant<__half, float>(p1, q, out, n, scale, device, stream);
+  } else if (pair == kF16 * 2 + kF16) {
+    launch_dequant<__half, __half>(p1, q, out, n, scale, device, stream);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -15,8 +15,9 @@ Backends:
 
 The reference pads every tensor to (rows, 1024) TPU tiles; the CUDA kernels
 work on flat tensors with a masked tail, so zero counts need no padding
-correction. ``fingerprint`` hashes the reference's padded extent, because
-its hash depends on it, but its kernel never materializes the padding.
+correction, and per-tile zero counts add the padding on the host.
+``fingerprint`` hashes the reference's padded extent, because its hash
+depends on it, but its kernel never materializes the padding.
 """
 
 from __future__ import annotations
@@ -98,30 +99,49 @@ def to_host(t: torch.Tensor) -> np.ndarray:
 # delta quantize / dequantize
 # ---------------------------------------------------------------------------
 
+def _tiling(n: int):
+    """(tile, padding) of the reference's layout of ``n`` flat elements:
+    (rows, 1024) with rows = ⌈n / 1024⌉ rounded up to a multiple of 8, cut
+    into tiles of block_rows x 1024, block_rows the first of 256, 128, 64,
+    32, 16, 8 that divides rows (``repro/kernels/ops.py::_to_2d``,
+    ``_block_rows``). The padding always lies in the last tile."""
+    padded = _ref.padded_length(n)
+    rows = padded // _ref.LANE_COLS
+    block_rows = next(c for c in (256, 128, 64, 32, 16, 8) if rows % c == 0)
+    return block_rows * _ref.LANE_COLS, padded - n
+
+
 def delta_quantize(p1, p2, eps: float = 1e-4, backend: Optional[str] = None,
                    return_block_zeros: bool = False):
     """Quantized delta q = floor((p1-p2)/scale + 0.5) (paper Algorithm 1).
 
     Returns (q int32 array shaped like p1, n_zero int) — optionally also the
-    zero counts the kernel reduced (one per launch; None on ``"ref"``).
+    zero count of each tile of the reference's (rows, 1024) layout, its
+    zero padding included, as the reference's kernel reduces them (None on
+    ``"ref"``, as in the reference).
     """
+    backend = backend or default_backend()
     dev = _device(backend)
-    q, zeros = delta_quantize_flat(_to(p1, dev), _to(p2, dev), eps)
-    nz = int(zeros)
-    if return_block_zeros:
-        return (to_host(q), nz,
-                None if dev.type == "cpu" else np.array([nz], np.int32))
-    return to_host(q), nz
+    a, b = _to(p1, dev), _to(p2, dev)
+    if not return_block_zeros or backend == "ref":
+        q, zeros = delta_quantize_flat(a, b, eps)
+        nz = int(zeros)
+        return (to_host(q), nz, None) if return_block_zeros else (to_host(q), nz)
+    tile, pad = _tiling(a.numel())
+    q, tiles = delta_quantize_flat(a, b, eps, tile=tile)
+    blocks = to_host(tiles)
+    nz = int(blocks.sum())
+    blocks[-1:] += pad
+    return to_host(q), nz, blocks
 
 
 def dequant_apply(p1, q, eps: float = 1e-4, out_dtype=None,
                   backend: Optional[str] = None):
-    """Reconstruct the child parameter: p2' = p1 - q*scale."""
+    """Reconstruct the child parameter: p2' = p1 - q*scale, rounded once
+    to ``out_dtype`` (default p1's dtype)."""
     dev = _device(backend)
-    a = _to(p1, dev)
-    out = dequant_apply_flat(a, _to(q, dev).to(torch.int32), eps)
-    return to_host(out.to(_ref.torch_dtype(out_dtype) if out_dtype is not None
-                        else a.dtype))
+    return to_host(dequant_apply_flat(_to(p1, dev), _to(q, dev).to(torch.int32),
+                                      eps, out_dtype=out_dtype))
 
 
 def chain_apply(base, qs, eps: float = 1e-4, out_dtype=None,

@@ -66,6 +66,17 @@ def delta_quantize_ref(p1: torch.Tensor, p2: torch.Tensor, eps: float = 1e-4):
     return q, torch.sum(q == 0, dtype=torch.int32)
 
 
+def tile_zero_counts(q: torch.Tensor, tile: int) -> torch.Tensor:
+    """Zeros of flat ``q`` in each run of ``tile`` elements, as a
+    (⌈n / tile⌉,) int32 tensor; the last run may be short."""
+    flat = (q.reshape(-1) == 0).to(torch.int32)
+    n = flat.shape[0]
+    padded = torch.zeros(-(-n // tile) * tile, dtype=torch.int32,
+                         device=q.device)
+    padded[:n] = flat
+    return padded.reshape(-1, tile).sum(dim=1, dtype=torch.int32)
+
+
 def dequant_apply_ref(p1: torch.Tensor, q: torch.Tensor, eps: float = 1e-4,
                       out_dtype=None) -> torch.Tensor:
     """Reconstruct the child: p2' = p1 - dequantize(q)."""

@@ -31,8 +31,8 @@ def snapshot_fused_flat(p1: torch.Tensor, p2: torch.Tensor, eps: float = 1e-4
         raise ValueError(f"shapes differ: {tuple(p1.shape)} vs {tuple(p2.shape)}")
     if not build.on_card(p1, p2):
         return snapshot_fused_ref(p1, p2, eps)
-    build.require_dtype(p1, torch.float32, "p1")
-    build.require_dtype(p2, torch.float32, "p2")
+    build.require_dtype(p1.dtype, (torch.float32,), "p1")
+    build.require_dtype(p2.dtype, (torch.float32,), "p2")
     q8 = torch.empty(p1.shape, dtype=torch.int8, device=p1.device)
     counts = torch.zeros(2, dtype=torch.int32, device=p1.device)
     if q8.numel():

@@ -345,3 +345,99 @@ def test_build_needs_nvcc_and_keys_libraries_by_source(tmp_path, monkeypatch):
     (csrc / "chain_apply.cu").write_text(
         (csrc / "chain_apply.cu").read_text() + "\n// edited\n")
     assert build.library_path("chain_apply") != before
+
+
+def _reference_tile_zeros(q_flat: np.ndarray) -> np.ndarray:
+    """A numpy model of the reference kernel's per-tile zero counts: q zero
+    padded to (rows, 1024), rows = ⌈n / 1024⌉ rounded up to a multiple of
+    8, cut into tiles of the first of 256, 128, ..., 8 rows that divides
+    rows (``repro/kernels/ops.py::_to_2d``, ``_block_rows``)."""
+    n = q_flat.size
+    rows = -(-n // 8192) * 8
+    block = next(c for c in (256, 128, 64, 32, 16, 8) if rows % c == 0)
+    padded = np.zeros(rows * 1024, np.int32)
+    padded[:n] = q_flat
+    return (padded.reshape(-1, block * 1024) == 0).sum(axis=1).astype(np.int32)
+
+
+# n = 4 x 16384 + 1: 72 rows in tiles of 8 rows, the last tile one real
+# element and 8191 padding zeros; n = 73733: tiles of 16 rows; one tile
+@pytest.mark.parametrize("n", [65537, 73733, 3000])
+def test_block_zeros_per_tile_match_reference(n, monkeypatch):
+    rng = np.random.default_rng(n)
+    p2 = rng.normal(size=n).astype(np.float32)
+    p1 = (p2 + rng.normal(scale=1e-4, size=n)
+          * (rng.random(n) < 0.5)).astype(np.float32)
+    qj, nzj, blocks_j = ref_ops.delta_quantize(p1, p2, backend="interpret",
+                                               return_block_zeros=True)
+    model = _reference_tile_zeros(np.asarray(qj))
+    np.testing.assert_array_equal(np.asarray(blocks_j), model)
+    # the card's path, with its device mapped to the CPU: the wrapper's
+    # plain per-tile counts plus the padding the ops layer adds
+    monkeypatch.setitem(ops._DEVICES, "cuda", "cpu")
+    q, nz, blocks = ops.delta_quantize(p1, p2, backend="cuda",
+                                       return_block_zeros=True)
+    np.testing.assert_array_equal(q, np.asarray(qj))
+    assert nz == nzj == int((q == 0).sum())
+    assert blocks.dtype == np.int32
+    np.testing.assert_array_equal(blocks, model)
+    assert ops.delta_quantize(p1, p2, backend="ref",
+                              return_block_zeros=True)[2] is None
+
+
+def test_delta_quantize_flat_tile_counts_on_cpu():
+    q = torch.tensor([0, 1, 0, 0] * 200, dtype=torch.int32)
+    p2 = torch.zeros(800)
+    p1 = q.to(torch.float32) * np.float32(ref.quant_scale(1e-4))
+    got, tiles = delta_quantize_flat(p1, p2, tile=256)
+    assert torch.equal(got, q)
+    assert tiles.tolist() == [192, 192, 192, 24]
+    assert tiles.dtype == torch.int32
+    with pytest.raises(ValueError, match="multiple of 256"):
+        delta_quantize_flat(p1, p2, tile=100)
+
+
+def test_require_dtype_takes_f16_and_still_refuses_bf16():
+    floats = (torch.float32, torch.float16)
+    for dtype in floats:
+        build.require_dtype(dtype, floats, "p1")
+    with pytest.raises(NotImplementedError, match=build.BF16_ITEM) as err:
+        build.require_dtype(torch.bfloat16, floats, "p1")
+    assert "other float types" not in str(err.value)
+    assert "float32 and float16" in str(err.value)
+    with pytest.raises(TypeError, match="expected int32"):
+        build.require_dtype(torch.int64, (torch.int32,), "q")
+    with pytest.raises(NotImplementedError) as err:
+        build.require_dtype(torch.float16, (torch.float32,), "base")
+    assert build.BF16_ITEM not in str(err.value)
+
+
+@pytest.mark.parametrize("out_dtype", [None, "float32", "float16"])
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+def test_f16_dequant_and_quantize_on_the_card_path(dtype, out_dtype,
+                                                   monkeypatch):
+    """The f16 operands the kernels now take, through the card's path with
+    its device mapped to the CPU: equal to the reference oracle and the
+    numpy twins bit for bit (the reference's interpret kernel may contract
+    its dequant into one rounding, which the oracle does not)."""
+    from repro_torch.store.delta import host_dequant, host_snapshot
+    rng = np.random.default_rng(21)
+    p2 = rng.normal(scale=0.05, size=(257, 33)).astype(dtype)
+    p1 = (p2.astype(np.float32) + rng.normal(scale=3e-2, size=p2.shape)
+          ).astype(dtype)
+    monkeypatch.setitem(ops._DEVICES, "cuda", "cpu")
+    q, nz = ops.delta_quantize(p1, p2, backend="cuda")
+    qj, nzj = ref_ops.delta_quantize(p1, p2, backend="ref")
+    np.testing.assert_array_equal(q, np.asarray(qj))
+    assert nz == nzj
+    q_twin, nz_twin, _ = host_snapshot(p1, p2, 1e-4)
+    np.testing.assert_array_equal(q, q_twin.astype(np.int32))
+    assert nz == nz_twin
+    out = ops.dequant_apply(p1, q, backend="cuda", out_dtype=out_dtype)
+    want_dtype = out_dtype or dtype
+    assert out.dtype == np.dtype(want_dtype)
+    oj = np.asarray(ref_ops.dequant_apply(p1, qj, backend="ref",
+                                          out_dtype=out_dtype))
+    np.testing.assert_array_equal(out.view(np.uint8), oj.view(np.uint8))
+    twin = host_dequant(p1, q, 1e-4, out_dtype=want_dtype)
+    np.testing.assert_array_equal(out.view(np.uint8), twin.view(np.uint8))

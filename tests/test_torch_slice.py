@@ -17,6 +17,7 @@ it.
 """
 
 import dataclasses
+import json
 import os
 import pathlib
 import re
@@ -202,6 +203,7 @@ FORBIDDEN_IMPORT = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)",
 def test_port_sources_import_no_jax_and_no_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
+    assert PORT / "diag" / "runner.py" in files
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files
                  for m in FORBIDDEN_IMPORT.finditer(f.read_text())]
@@ -210,7 +212,7 @@ def test_port_sources_import_no_jax_and_no_reference():
 
 def test_every_port_module_imports_with_jax_blocked():
     code = textwrap.dedent("""
-        import importlib, pkgutil, sys
+        import importlib, json, pkgutil, sys
         sys.modules["jax"] = None      # any import of jax now raises
         sys.modules["repro"] = None    # and so does the reference package
         import repro_torch
@@ -221,10 +223,16 @@ def test_every_port_module_imports_with_jax_blocked():
         loaded = [m for m, mod in sys.modules.items() if mod is not None
                   and (m.split(".")[0] in ("jax", "jaxlib", "repro"))]
         assert not loaded, loaded
-        print(len(names))
+        print(json.dumps(names))
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30
+    names = set(json.loads(out.stdout))
+    assert len(names) >= 30
+    # the lineage operations and the diagnostics engine are among them
+    assert {f"repro_torch.core.{m}" for m in ("diff", "merge", "cascade",
+                                              "auto")} <= names
+    assert {f"repro_torch.diag.{m}" for m in ("runner", "transfer", "gate",
+                                              "blame")} <= names

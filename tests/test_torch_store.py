@@ -272,3 +272,68 @@ def test_serial_store_path_matches_reference(tmp_path):
     for k in parent.params:
         np.testing.assert_array_equal(fresh.materialize_param(refs[1][2], k),
                                       fresh_ref.materialize_param(refs[0][2], k))
+
+
+def _f16_chain(seed=0):
+    """base -> ft -> ft2 in float16: sparse finetune noise on every tensor,
+    and a re-initialised head in ft (its delta overflows int8)."""
+    parent, child = _pair(seed)
+    rng = np.random.default_rng(seed + 7)
+    base = RefArtifact(parent.graph, {k: v.astype(np.float16)
+                                      for k, v in parent.params.items()},
+                       model_type="toy")
+    ft = RefArtifact(parent.graph, {k: v.astype(np.float16)
+                                    for k, v in child.params.items()},
+                     model_type="toy")
+    ft2 = RefArtifact(parent.graph, {
+        k: (v.astype(np.float32) + rng.normal(scale=2e-3, size=v.shape)
+            * (rng.random(v.shape) < 0.3)).astype(np.float16)
+        for k, v in ft.params.items()}, model_type="toy")
+    return base, ft, ft2
+
+
+@pytest.mark.parametrize("backend", ["ref", "cuda-on-cpu"])
+def test_f16_chain_manifest_refs_equal_reference(tmp_path, monkeypatch,
+                                                 backend):
+    """An f16 lineage commits to the reference's manifest refs through the
+    port's host path and through its card path (device mapped to the CPU,
+    where the f16 dequant runs the wrapper's plain version), and checks
+    out bit for bit alike."""
+    calls = []
+    if backend != "ref":
+        monkeypatch.setitem(ops._DEVICES, "cuda", "cpu")
+        wrapped = ops.dequant_apply_flat
+
+        def counted(p1, q, eps=1e-4, out_dtype=None):
+            calls.append((p1.dtype, out_dtype))
+            return wrapped(p1, q, eps, out_dtype=out_dtype)
+        monkeypatch.setattr(ops, "dequant_apply_flat", counted)
+    models = _f16_chain()
+    ref_store = RefStore(root=str(tmp_path / "ref"), chunk_threshold=0)
+    port_store = ArtifactStore(root=str(tmp_path / "port"), chunk_threshold=0,
+                               backend="ref" if backend == "ref" else "cuda")
+    refs = []
+    for store, wrap in ((ref_store, lambda a: a), (port_store, _port)):
+        r0 = store.commit_artifact("base", wrap(models[0]))
+        r1 = store.commit_artifact("ft", wrap(models[1]), parent_ref=r0)
+        r2 = store.commit_artifact("ft2", wrap(models[2]), parent_ref=r1)
+        refs.append([r0, r1, r2])
+    assert refs[0] == refs[1]
+    kinds = {e["kind"] for e in port_store.get_manifest(refs[1][2])
+             ["params"].values()}
+    assert "delta" in kinds
+    fresh_ref = RefStore(root=str(tmp_path / "ref"), chunk_threshold=0)
+    fresh = ArtifactStore(root=str(tmp_path / "port"), chunk_threshold=0,
+                          backend="ref" if backend == "ref" else "cuda")
+    for r in refs[1]:
+        want = fresh_ref.materialize_artifact(r).params
+        got = fresh.materialize_artifact(r).params
+        manifest = fresh.get_manifest(r)["params"]
+        for k, v in want.items():
+            assert np.asarray(got[k]).dtype == np.float16
+            assert tensor_hash(np.asarray(got[k])) == manifest[k]["hash"]
+            np.testing.assert_array_equal(np.asarray(got[k]).view(np.uint16),
+                                          np.asarray(v).view(np.uint16))
+    assert fresh.fsck(refs[1])["ok"]
+    if backend != "ref":
+        assert (torch.float16, "float16") in calls, calls
