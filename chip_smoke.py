@@ -12,23 +12,29 @@ exits non-zero on failure:
    prints each flash-attention instantiation's ptxas report (registers,
    spills) and the tensor-core instructions in its SASS (``cuobjdump
    -sass``: HGMMA, or HMMA for an mma.sync f32 path), and fails when one
-   has none or ``cuobjdump`` is missing;
+   of the six (f32, bf16, f16 x head dim 64, 128) has none or
+   ``cuobjdump`` is missing;
 3. kernels: runs each storage kernel's wrapper at the main path's shapes,
    at ragged shapes and with an overflowing delta, and holds it bit for
    bit against its plain torch version on the same card inputs and
    against the numpy twin on the host; holds the flash-attention kernel
-   within 2e-5 (f32) and 3e-2 (bf16) of its plain version over the
-   reference test's five mask specs, a prefix-LM prefix past a query
-   tile, ragged lengths, the serving prefill's shape, the qwen3-0.6b
-   geometry at 4096 tokens and a head dim the wrapper pads; holds
+   within 2e-5 (f32), 3e-2 (bf16) and 1e-2 (f16) of its plain version
+   over the reference test's five mask specs, a prefix-LM prefix past a
+   query tile, ragged lengths, the serving prefills' shapes (paper-bert's,
+   and qwen3-0.6b's of phase 4d), the qwen3-0.6b geometry at 4096 tokens
+   and a head dim the wrapper pads; holds
    delta_quantize and dequant_apply with float16 operands and results
-   (main-path, ragged and overflowing cases) bit for bit against the plain
-   versions and numpy twins, and ``ops.delta_quantize``'s per-tile zero
-   counts against a numpy count of the reference's tiling; times each
-   kernel (and the two float16 variants) and its plain version, and flash
-   attention (device time per call, and eager) beside
-   ``scaled_dot_product_attention``, which the port never calls, at the
-   serving shape and the qwen3-0.6b geometry;
+   (main-path, ragged and overflowing cases) and with bfloat16 ones
+   (qwen3-0.6b's (151936, 1024) and (28, 1024, 3072) leaves, ragged,
+   overflowing, mixed and rounding-edge cases) bit for bit against the
+   plain versions and the numpy twins (bf16 on the host as the carrier of
+   ``repro_torch/common/bf16.py``), and ``ops.delta_quantize``'s per-tile
+   zero counts against a numpy count of the reference's tiling; times each
+   kernel (and its float16 and bfloat16 variants) and its plain version,
+   and flash attention in f32, bf16 and f16 (device time per call, and
+   eager) beside ``scaled_dot_product_attention``, which the port never
+   calls, at the serving shapes (paper-bert's and qwen3-0.6b's) and the
+   qwen3-0.6b geometry at 4096 tokens;
 4. main path: commits a full-width paper-bert (f32, random weights from a
    seed) lineage base -> ft1 -> ft2 -> ft3 plus task-head (a child of ft1
    with a re-initialised lm_head) through ``ArtifactStore(chunk_threshold=
@@ -50,7 +56,24 @@ exits non-zero on failure:
 4c. float16: base -> ft1 -> ft2 plus task-head, every tensor float16, is
    committed and checked out through the card's store; its manifest refs
    and checkouts must equal a host (``backend="ref"``) store's, and a
-   dequant_apply launch must take a float16 operand;
+   dequant_apply launch must take a float16 operand; ``ServeEngine``
+   prefills 8 x 512 prompts on the ft2 pool view in float16 (the f16
+   flash kernel), two rows held against the host engine on the same
+   weights in f32;
+4d. bfloat16: a lineage of full-width qwen3-0.6b (28 layers, vocab
+   151,936, 596 M parameters) in its own dtype, random weights from the
+   seed, base -> ft1 -> ft2 (noise drawn in f32 and narrowed) plus
+   task-head (ft1 with the last layer of layers/mlp/w_out re-drawn: an
+   int8-overflowing delta), committed and checked out through the card's
+   store (bf16 delta_quantize and dequant_apply), refs and bits equal to a
+   host store's, within the quantization step of the live weights, fsck
+   clean; a ModelPool view of ft2 on the card equal to the host checkout;
+   ``ServeEngine`` on it (8 x 512 prompts, 32 new tokens, bf16 flash),
+   two rows held against the host engine in bf16: prefill logits and,
+   with the card fed the host's tokens, each of the 31 decode steps'
+   logits within 3e-2, greedy tokens equal except after a near tie. It
+   fails unless bf16
+   delta_quantize, dequant_apply and flash attention each launched;
 5. the same lineage with the default chunk threshold, whose large tensors
    take the host chunk engine, cut to its first ``PHASE5_LAYERS`` layers
    (host work, no kernel): bit-identical checkouts and a clean fsck;
@@ -69,7 +92,8 @@ exits non-zero on failure:
    must launch once per large leaf per save, and dequant_apply in the
    lossy commits;
 7. the paper's update workflow (Figure 4, Algorithm 2): full-width
-   paper-bert versions made by the port's train step on the card (base;
+   paper-bert versions (``WORKFLOW_LAYERS`` of its 12 layers) made by the
+   port's train step on the card (base;
    task-a and task-b under it; task-a-sub under task-a) in one
    ``LineageGraph`` over a ``chunk_threshold=0`` store, each node tested
    by a probe scored from ``models.prefill`` (flash kernel); a gated
@@ -83,8 +107,9 @@ exits non-zero on failure:
    every new node checks out hash-exact and equal to the host's, with a
    clean fsck over the models and the test ledger.
 
-Phases 4, 4b, 4c, 6 and 7 each zero every kernel's launch count just
-before they drive their path and read it just after. The line before last is one
+Phases 4, 4b, 4c, 4d, 6 and 7 each zero every kernel's launch count (and
+its count by operand dtype) just before they drive their path and read it
+just after. The line before last is one
 JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -157,7 +182,8 @@ def cuobjdump(build) -> str:
 def instantiation(symbol: str) -> str:
     """'bf16 hd128' for a mangled flash_kernel<T, HD> symbol."""
     import re
-    dtype = "bf16" if "bfloat16" in symbol else "f32"
+    dtype = ("bf16" if "bfloat16" in symbol
+             else "f16" if "__half" in symbol else "f32")
     hd = re.search(r"Li(\d+)E", symbol)
     return f"{dtype} hd{hd.group(1) if hd else '?'}"
 
@@ -194,10 +220,11 @@ def tensor_core_report(build, log: str) -> None:
                if "flash_kernel" in k}
     print(f"sass flash_attention tensor-core instructions: "
           f"{json.dumps(kernels, sort_keys=True)}", flush=True)
-    if len(kernels) != 4:
-        fail(f"expected 4 flash_kernel instantiations, found {sorted(kernels)}")
+    if len(kernels) != 6:
+        fail(f"expected 6 flash_kernel instantiations, found {sorted(kernels)}")
     for label, n in kernels.items():
-        need = ("HGMMA",) if label.startswith("bf16") else ("HGMMA", "HMMA")
+        need = ("HGMMA",) if label.startswith(("bf16", "f16")) \
+            else ("HGMMA", "HMMA")
         if not any(n[op] for op in need):
             fail(f"flash_kernel {label} has no {' or '.join(need)} in its SASS")
 
@@ -222,9 +249,16 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def max_abs(a, b) -> float:
+    """Largest |a - b|; an inf or NaN at the same place in both counts as
+    no error (``same_bits`` checks the bits), anywhere else as inf."""
+    import torch
     if a.numel() == 0:
         return 0.0
-    return float((a.double() - b.double()).abs().max())
+    a, b = a.double(), b.double()
+    d = (a - b).abs()
+    d[(a == b) | (torch.isnan(a) & torch.isnan(b))] = 0.0
+    d[torch.isnan(d)] = math.inf
+    return float(d.max())
 
 
 def same_bits(a, b) -> bool:
@@ -233,7 +267,7 @@ def same_bits(a, b) -> bool:
         return False
     if a.dtype == torch.float32:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
-    if a.dtype == torch.float16:
+    if a.dtype in (torch.float16, torch.bfloat16):
         return torch.equal(a.view(torch.int16), b.view(torch.int16))
     return torch.equal(a, b)
 
@@ -326,20 +360,25 @@ def check_kernels(gen):
         if label.startswith(("(12, 768, 3072)", "(257, 33)",
                              "(768, 30522) overflow")):
             check_f16(label, p1, p2, hold)
+    check_bf16(gen, hold)
     check_tile_zeros(gen, bad)
     torch.cuda.synchronize()
     errs["fingerprint"] = check_fingerprint(gen, bad)
-    errs["flash_attention"], errs["flash_attention_bf16"] = check_flash(
-        gen, bad)
+    flash = check_flash(gen, bad)
+    for name, suffix, _ in FLASH_DTYPES:
+        errs[f"flash_attention{suffix}"] = flash[name]
     for line in bad:
         print(f"MISMATCH {line}", flush=True)
     if bad:
         fail(f"{len(bad)} kernel checks failed")
     print("kernels: the five storage kernels equal their plain versions "
-          "(and their numpy twins) bit for bit; flash_attention is within "
-          f"{FLASH_TOL['float32']} (f32) and {FLASH_TOL['bfloat16']} (bf16) "
-          f"of its plain version: max |err| {errs['flash_attention']:.3g} "
-          f"f32, {errs['flash_attention_bf16']:.3g} bf16", flush=True)
+          "(and their numpy twins) bit for bit, in f32, f16 and bf16; "
+          "flash_attention is within "
+          f"{FLASH_TOL['float32']} (f32), {FLASH_TOL['bfloat16']} (bf16) and "
+          f"{FLASH_TOL['float16']} (f16) of its plain version: max |err| "
+          f"{errs['flash_attention']:.3g} f32, "
+          f"{errs['flash_attention_bf16']:.3g} bf16, "
+          f"{errs['flash_attention_f16']:.3g} f16", flush=True)
     return errs
 
 
@@ -383,6 +422,105 @@ def check_f16(label, p1, p2, hold):
                                            out_dtype=out_dtype)))
 
 
+# qwen3-0.6b's largest leaves, the shapes phase 4d's bf16 kernels run at:
+# embed/tok (tied to the head) and the stacked MLP weights of its 28 layers
+BF16_SHAPES = ((151936, 1024), (28, 1024, 3072))
+# f32 bit patterns whose bf16 rounding is an edge case: +-0, subnormals,
+# ties to even, the largest finite value (rounds to inf), +-inf and
+# positive NaNs (CUDA's f32 arithmetic returns the canonical NaN, sign
+# dropped, where the host's keeps a negative NaN's sign)
+BF16_EDGE_BITS = (0x00000000, 0x80000000, 0x00000001, 0x80000001, 0x007FFFFF,
+                  0x3F808000, 0x3F818000, 0xBF808000, 0x3F80FFFF, 0x7F7FFFFF,
+                  0x7F800000, 0xFF800000, 0x7FC00000, 0x7F800001)
+
+
+def bf16_cases(gen):
+    """(label, p1, p2) bf16 pairs on the card: qwen3-0.6b's largest leaves
+    with a finetune-sized delta (weights ~0.03, noise 1e-3 at density
+    0.3), a ragged shape, an overflowing delta, and one element."""
+    import torch
+
+    def pair(shape, scale):
+        p2 = torch.randn(shape, generator=gen, device="cuda") * 0.03
+        noise = torch.randn(shape, generator=gen, device="cuda") * scale
+        keep = torch.rand(shape, generator=gen, device="cuda") < 0.3
+        return ((p2 + noise * keep).to(torch.bfloat16),
+                p2.to(torch.bfloat16))
+
+    out = [(f"{shape} bf16 finetune", *pair(shape, 1e-3))
+           for shape in BF16_SHAPES]
+    out.append(("(257, 33) bf16 finetune", *pair((257, 33), 1e-3)))
+    out.append(("(257, 33) bf16 overflow", *pair((257, 33), 0.5)))
+    out.append(("(1,) bf16", *pair((1,), 1e-3)))
+    return out
+
+
+def check_bf16(gen, hold):
+    """delta_quantize and dequant_apply with bfloat16 operands (widened in
+    the kernel) and bfloat16 results (rounded in the kernel), against the
+    plain versions and the numpy twins on the host's bf16 carrier, bit for
+    bit: q, zero counts, and the output's 16 bits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.common import bf16
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.delta_quantize import (delta_quantize_flat,
+                                                    dequant_apply_flat)
+    from repro_torch.store.delta import host_dequant, host_snapshot
+
+    for label, a, b in bf16_cases(gen):
+        ha, hb = bf16.from_torch(a), bf16.from_torch(b)
+        q_np, nz_np, narrow = host_snapshot(ha, hb, EPS)
+        q_np = q_np.astype(np.int32)
+        q, nz = delta_quantize_flat(a, b, EPS)
+        hold("delta_quantize", label, q, ref.delta_quantize_ref(a, b, EPS)[0],
+             torch.from_numpy(q_np))
+        if int(nz) != nz_np:
+            hold.bad.append(f"delta_quantize {label}: zero count {int(nz)} "
+                            f"vs twin {nz_np}")
+        if ("overflow" in label) == narrow:
+            hold.bad.append(f"{label}: int8 narrowing {narrow}")
+        out = dequant_apply_flat(a, q, EPS)
+        hold("dequant_apply", f"{label} -> bfloat16", out,
+             ref.dequant_apply_ref(a, q, EPS),
+             bf16.to_torch(host_dequant(ha, q_np, EPS, out_dtype="bfloat16")))
+        if not label.startswith("(257, 33)"):
+            continue
+        # the mixed cases: bf16 -> f32, f32 -> bf16, (f32, bf16) into q
+        wide = a.float()
+        for parent, host_parent, out_dtype in ((a, ha, "float32"),
+                                               (wide, bf16.widen(ha),
+                                                "bfloat16")):
+            got = dequant_apply_flat(parent, q, EPS, out_dtype=out_dtype)
+            twin = host_dequant(host_parent, q_np, EPS, out_dtype=out_dtype)
+            hold("dequant_apply", f"{label} {str(parent.dtype)[6:]} -> "
+                 f"{out_dtype}", got,
+                 ref.dequant_apply_ref(parent, q, EPS, out_dtype=out_dtype),
+                 bf16.to_torch(twin) if bf16.is_bf16(twin)
+                 else torch.from_numpy(twin))
+        q_mixed, _ = delta_quantize_flat(wide, b, EPS)
+        hold("delta_quantize", f"{label} (f32, bf16)", q_mixed,
+             ref.delta_quantize_ref(wide, b, EPS)[0],
+             torch.from_numpy(host_snapshot(bf16.widen(ha), hb, EPS)[0]
+                              .astype(np.int32)))
+    # results at the rounding edges, NaN parents included
+    edges = torch.tensor(BF16_EDGE_BITS, dtype=torch.int64).to(
+        torch.int32).view(torch.float32).to("cuda")
+    parent = ref.to_bfloat16(edges)
+    q = torch.zeros(edges.shape, dtype=torch.int32, device="cuda")
+    q[5:8] = torch.tensor([1, -1, 2], dtype=torch.int32)
+    for p, host_p in ((parent, bf16.from_torch(parent)),
+                      (edges, edges.cpu().numpy())):
+        with np.errstate(invalid="ignore"):     # NaN and inf parents
+            twin = host_dequant(host_p, q.cpu().numpy(), EPS,
+                                out_dtype="bfloat16")
+        hold("dequant_apply", f"edges {str(p.dtype)[6:]} -> bfloat16",
+             dequant_apply_flat(p, q, EPS, out_dtype=torch.bfloat16),
+             ref.dequant_apply_ref(p, q, EPS, out_dtype=torch.bfloat16),
+             bf16.to_torch(twin))
+
+
 def tile_zeros_model(q: "np.ndarray"):
     """The reference kernel's per-tile zero counts of flat ``q``, in numpy:
     q zero padded to (rows, 1024), rows = ceil(n / 1024) rounded up to a
@@ -419,18 +557,25 @@ def check_tile_zeros(gen, bad):
 
 
 # the reference test's tolerances (tests/test_kernels.py): the kernel sums
-# in another order than the plain version, so the bits differ
-FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# in another order than the plain version, so the bits differ; float16
+# (not in the reference test) keeps three more mantissa bits than bf16 and
+# is held to a third of bf16's tolerance (tests/test_torch_flash.py)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2, "float16": 1e-2}
+FLASH_DTYPES = (("float32", "", ""), ("bfloat16", "_bf16", "bf16"),
+                ("float16", "_f16", "f16"))   # (name, key suffix, label)
 SERVE_SHAPE = dict(B=8, Hq=12, Hkv=12, S=512, hd=64)   # paper-bert prefill
 # configs/qwen3_0_6b.py's attention (GQA, head_dim 128) at a long prompt
 QWEN3_SHAPE = dict(B=1, Hq=16, Hkv=8, S=4096, hd=128)
+# the same attention at phase 4d's serving prefill (8 x 512-token prompts)
+QWEN3_SERVE_SHAPE = dict(B=8, Hq=16, Hkv=8, S=512, hd=128)
 
 
 def flash_cases():
     """(shape, masks) of the flash kernel's checks: the reference test's
     five specs, a prefix-LM prefix past a 64-row query tile, ragged
-    lengths (one with GQA at head_dim 128), the serving prefill, the
-    qwen3-0.6b geometry, and a head_dim the wrapper pads (100 -> 104)."""
+    lengths (one with GQA at head_dim 128), the serving prefills of
+    paper-bert (phases 4b, 4c) and qwen3-0.6b (phase 4d), the qwen3-0.6b
+    geometry at 4096 tokens, and a head_dim the wrapper pads (100 -> 104)."""
     return [
         (dict(B=2, Hq=4, Hkv=2, S=64, hd=16), dict(causal=True)),
         (dict(B=1, Hq=8, Hkv=1, S=32, hd=8), dict(causal=True)),
@@ -444,6 +589,7 @@ def flash_cases():
         (dict(B=2, Hq=16, Hkv=8, S=300, hd=128),
          dict(causal=True, window=100)),
         (SERVE_SHAPE, dict(causal=True)),
+        (QWEN3_SERVE_SHAPE, dict(causal=True)),
         (QWEN3_SHAPE, dict(causal=True)),
         (dict(B=1, Hq=4, Hkv=2, S=150, hd=100),
          dict(causal=True, prefix_len=70)),
@@ -459,14 +605,14 @@ def flash_inputs(gen, shape, dtype):
 
 def check_flash(gen, bad):
     """The flash kernel against its plain version on the same card inputs,
-    in f32 and bf16. Returns the largest |kernel - plain| of each."""
+    in f32, bf16 and f16. Returns {dtype name: largest |kernel - plain|}."""
     import torch
 
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
     worst = {}
-    for name, dtype in (("float32", torch.float32),
-                        ("bfloat16", torch.bfloat16)):
+    for name, _, _ in FLASH_DTYPES:
+        dtype = getattr(torch, name)
         worst[name] = 0.0
         for shape, masks in flash_cases():
             q, k, v = flash_inputs(gen, shape, dtype)
@@ -480,7 +626,7 @@ def check_flash(gen, bad):
                 bad.append(f"flash_attention {name} {shape} {masks}: "
                            f"max |kernel - plain| {err} (tolerance "
                            f"{FLASH_TOL[name]})")
-    return worst["float32"], worst["bfloat16"]
+    return worst
 
 
 def fingerprint_cases(gen):
@@ -585,6 +731,20 @@ def time_kernels(gen):
         lambda: dequant_apply_flat(w1h, q_w, EPS),
         lambda: ref.dequant_apply_ref(w1h, q_w, EPS),
         8 * n_w, 2 * n_w, "(12, 768, 3072) f16 + int32 -> f16")
+    # the bf16 instantiations at qwen3-0.6b's largest leaves (phase 4d):
+    # 2 B per operand, int32 q, bf16 out
+    e1, e2 = (t.to(torch.bfloat16) for t in pair(BF16_SHAPES[0], 1e-3))
+    m1, m2 = (t.to(torch.bfloat16) for t in pair(BF16_SHAPES[1], 1e-3))
+    q_m, _ = delta_quantize_flat(m1, m2, EPS)
+    n_e, n_m = e1.numel(), m1.numel()
+    rows["delta_quantize_bf16"] = (
+        lambda: delta_quantize_flat(e1, e2, EPS),
+        lambda: ref.delta_quantize_ref(e1, e2, EPS),
+        8 * n_e, 4 * n_e, f"{BF16_SHAPES[0]} bf16")
+    rows["dequant_apply_bf16"] = (
+        lambda: dequant_apply_flat(m1, q_m, EPS),
+        lambda: ref.dequant_apply_ref(m1, q_m, EPS),
+        8 * n_m, 2 * n_m, f"{BF16_SHAPES[1]} bf16 + int32 -> bf16")
     out = {}
     for name, (kernel, plain, nbytes, flops, shape) in rows.items():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -595,9 +755,12 @@ def time_kernels(gen):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "shape": shape}
     for name in ("delta_quantize", "dequant_apply"):
-        out[name]["f16"] = out.pop(f"{name}_f16")
+        for sub in ("f16", "bf16"):
+            out[name][sub] = out.pop(f"{name}_{sub}")
     out["flash_attention"] = time_flash(gen, SERVE_SHAPE, plain=True)
     out["flash_attention"]["qwen3_0_6b"] = time_flash(gen, QWEN3_SHAPE)
+    out["flash_attention"]["qwen3_0_6b_serve"] = time_flash(
+        gen, QWEN3_SERVE_SHAPE)
     return out
 
 
@@ -628,8 +791,8 @@ def graph_ms(fn, iters: int) -> float:
 
 
 def time_flash(gen, shape, plain=False):
-    """The flash kernel's milliseconds at ``shape`` (causal) in f32 and
-    bf16, each beside its bound (``flash_attention.roofline``) and one
+    """The flash kernel's milliseconds at ``shape`` (causal) in f32, bf16
+    and f16, each beside its bound (``flash_attention.roofline``) and one
     library call that computes the same function,
     ``scaled_dot_product_attention`` (timed here, never called by the
     port), on k and v expanded to the query heads outside the timing.
@@ -644,8 +807,9 @@ def time_flash(gen, shape, plain=False):
                                                      roofline)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     B, Hq, Hkv, S, hd = (shape[k] for k in ("B", "Hq", "Hkv", "S", "hd"))
-    out = {"shape": f"({B}, {Hq}, {Hkv}, {S}, {hd}) causal, f32 / bf16"}
-    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+    out = {"shape": f"({B}, {Hq}, {Hkv}, {S}, {hd}) causal, f32 / bf16 / f16"}
+    for name, tag, _ in FLASH_DTYPES:
+        dtype = getattr(torch, name)
         q, k, v = flash_inputs(gen, shape, dtype)
         ke, ve = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
         bound, by = roofline(B, Hq, Hkv, S, S, hd, dtype)
@@ -662,8 +826,9 @@ def time_flash(gen, shape, plain=False):
             f"eager_ms{tag}": cuda_ms(kernel, 20),
             f"library_eager_ms{tag}": cuda_ms(library, 20),
             f"bound_ms{tag}": bound, f"bound_by{tag}": by})
-        if plain and dtype == torch.float32:
-            out["plain_ms"] = cuda_ms(lambda: flash_attention_ref(q, k, v), 5)
+        if plain:
+            out[f"plain_ms{tag}"] = cuda_ms(
+                lambda: flash_attention_ref(q, k, v), 5)
     return out
 
 
@@ -798,12 +963,22 @@ def wrappers():
             "flash_attention": flash_attention}
 
 
+# {path: {kernel: {operand dtypes: launches}}}, recorded by read_launches
+LAUNCHES_BY_DTYPE = {}
+
+
 def zero_launches():
     for w in wrappers().values():
         w.launches = 0
+        w.launches_by_dtype = {}
 
 
-def read_launches():
+def read_launches(path=None):
+    """{kernel: launches} since zero_launches; with ``path``, the counts by
+    operand dtype are kept in LAUNCHES_BY_DTYPE[path]."""
+    if path is not None:
+        LAUNCHES_BY_DTYPE[path] = {k: dict(w.launches_by_dtype)
+                                   for k, w in wrappers().items()}
     return {k: w.launches for k, w in wrappers().items()}
 
 
@@ -820,7 +995,7 @@ def main_path(cfg, params, workdir, card):
     store2, refs, out = check_out(root, CHECKOUT, chunk_threshold=0)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = read_launches()
+    launches = read_launches("lineage")
     print(f"main path: commit {t1 - t0:.3f} s, checkout of "
           f"{'+'.join(CHECKOUT)} {t2 - t1:.3f} s, compression ratio "
           f"{store.compression_ratio():.3f}, launches {json.dumps(launches)} "
@@ -869,37 +1044,35 @@ def f16_path(cfg, params, workdir, card):
     """Phase 4c: phase 4's lineage shape (base -> ft1 -> ft2, task-head
     under ft1) with every tensor float16, committed and checked out through
     the card's store; manifest refs and checkouts must equal a host
-    (``backend="ref"``) store's. Returns the launch counts of its run."""
+    (``backend="ref"``) store's. Then one ``ServeEngine`` prefill of ft2's
+    pool view in float16 (the f16 flash kernel), held against the host
+    engine. Returns the launch counts of its run."""
     import numpy as np
     import torch
 
     from repro_torch.common.hashing import tensor_hash
-    from repro_torch.kernels import ops
+    from repro_torch.serve import ModelPool
+    from repro_torch.store import ArtifactStore
 
     half = {n: {k: v.astype(np.float16) for k, v in params[n].items()}
             for n in F16_NODES}
     nbytes = sum(v.nbytes for v in half["base"].values())
-    dequant, operands = ops.dequant_apply_flat, []
-
-    def watched(p1, q, eps=1e-4, out_dtype=None):
-        if p1.is_cuda and p1.numel():
-            operands.append(str(p1.dtype).removeprefix("torch."))
-        return dequant(p1, q, eps, out_dtype=out_dtype)
-
     root, host_root = (os.path.join(workdir, d) for d in ("f16", "f16-host"))
     zero_launches()
-    ops.dequant_apply_flat = watched
-    try:
-        t0 = time.perf_counter()
-        commit_lineage(root, cfg.name, half, chunk_threshold=0)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        store, refs, out = check_out(root, F16_CHECKOUT, chunk_threshold=0)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-    finally:
-        ops.dequant_apply_flat = dequant
-    launches = read_launches()
+    t0 = time.perf_counter()
+    commit_lineage(root, cfg.name, half, chunk_threshold=0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    store, refs, out = check_out(root, F16_CHECKOUT, chunk_threshold=0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    pool = ModelPool(ArtifactStore(root=root, chunk_threshold=0), verify=True)
+    view = pool.get(refs["ft2"])
+    cfg16 = dataclasses.replace(cfg, dtype="float16")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    served = serve_view("f16 path", cfg16, view.params, gen, n_tokens=1,
+                        host_dtype="float32")
+    launches = read_launches("lineage_f16")
     commit_lineage(host_root, cfg.name, half, chunk_threshold=0,
                    backend="ref")
     _, host_refs, host = check_out(host_root, F16_CHECKOUT,
@@ -917,18 +1090,304 @@ def f16_path(cfg, params, workdir, card):
                         host[node][key]).view(np.uint16))):
                 fail(f"f16 path: {node}:{key} is not its manifest's and the "
                      f"host's float16 tensor")
+    for key, value in view.params.items():
+        if not np.array_equal(np.asarray(value).view(np.uint16),
+                              np.asarray(host["ft2"][key]).view(np.uint16)):
+            fail(f"f16 path: the card's ft2 view differs from the host "
+                 f"checkout at {key}")
     report = store.fsck(list(refs.values()))
     if not report["ok"]:
         fail(f"f16 path: fsck is not clean: {report}")
+    by_dtype = LAUNCHES_BY_DTYPE["lineage_f16"]
     print(f"f16 path: {cfg.name} f16 ({nbytes} bytes per model), "
           f"{len(F16_NODES)} models committed in {t1 - t0:.3f} s, "
           f"{'+'.join(F16_CHECKOUT)} checked out in {t2 - t1:.3f} s, "
           f"compression ratio {store.compression_ratio():.3f}; manifest refs "
-          f"and checkouts equal the host store's, fsck clean; dequant_apply "
-          f"operands {json.dumps(sorted(set(operands)))}, launches "
-          f"{json.dumps(launches)} ({card})", flush=True)
-    if launches["dequant_apply"] == 0 or "float16" not in operands:
+          f"and checkouts equal the host store's, fsck clean; ft2 view built "
+          f"in {view.build_s:.3f} s, prefill {served['prefill_s']:.4f} s; "
+          f"launches {json.dumps(launches)}, by dtype "
+          f"{json.dumps(by_dtype, sort_keys=True)} ({card})", flush=True)
+    if not any(k.startswith("float16") for k in by_dtype["dequant_apply"]):
         fail("f16 path: no dequant_apply launch with a float16 operand")
+    if not by_dtype["flash_attention"].get("float16"):
+        fail("f16 path: the f16 prefill launched no float16 flash kernel")
+    return launches
+
+
+def serve_view(label, cfg, flat, gen, n_tokens, host_dtype=None):
+    """``ServeEngine`` on a view's params on the card: prefill of 8 x 512
+    prompts and ``n_tokens`` greedy tokens, then two rows against the
+    port's engine functions on the host, in the same dtype or, with
+    ``host_dtype``, on the same weights widened to it (the host's f16
+    products are scalar and take minutes at full width). Prefill logits
+    must lie within ``SERVE_TOL[dtype]`` times the larger of 1 and the
+    host logits' largest magnitude (a 16-bit float rounds relative to the
+    magnitude), and the tokens must be equal except after a near tie. With
+    decode steps, the card's step functions are then fed the host's tokens
+    (teacher forcing), and every decode step's logits are held to the same
+    tolerance against the host's. Returns the timings."""
+    import torch
+
+    from repro_torch.convert import to_params
+    from repro_torch.models import flat_paths
+    from repro_torch.serve import ServeEngine
+
+    engine = ServeEngine(cfg, to_params(flat, "cuda"), max_len=SERVE_MAX_LEN)
+    B, S = SERVE_SHAPE["B"], SERVE_SHAPE["S"]
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.generate({"tokens": tokens}, n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    timed(min(n_tokens, 2))                 # warm-up
+    prefill_s, one = timed(1)
+    out = {"prefill_s": prefill_s}
+    full = one
+    if n_tokens > 1:
+        total_s, full = timed(n_tokens)
+        out.update(total_s=total_s,
+                   decode_ms=(total_s - prefill_s) / (n_tokens - 1) * 1e3,
+                   tokens_per_s=B * n_tokens / total_s)
+        if not torch.equal(full[:, :1], one):
+            fail(f"{label}: generate(1) is not the first of "
+                 f"generate({n_tokens})")
+    if (tuple(full.shape) != (B, n_tokens) or int(full.min()) < 0
+            or int(full.max()) >= cfg.vocab_size):
+        fail(f"{label}: the engine gave {full.dtype}{tuple(full.shape)}")
+    rows = tokens[:2]
+    card_params = engine.params
+    del engine
+    t0 = time.perf_counter()
+    host_cfg, host_params = cfg, to_params(flat, "cpu")
+    if host_dtype is not None:
+        host_cfg = dataclasses.replace(cfg, dtype=host_dtype)
+        host_params = to_params({k: v.to(getattr(torch, host_dtype))
+                                 for k, v in flat_paths(host_params).items()})
+    host_steps, host_tokens, margins = _greedy_host(
+        host_cfg, host_params, rows.cpu(), n_tokens)
+    out["host_s"] = time.perf_counter() - t0
+    card_steps = _forced_logits(cfg, card_params, rows, host_tokens)
+    del card_params
+    host_steps = [h.float() for h in host_steps]
+    if not all(torch.isfinite(x).all() for x in card_steps + host_steps):
+        fail(f"{label}: non-finite logits")
+    errs, tols = [], []
+    for card_logits, host_logits in zip(card_steps, host_steps):
+        errs.append(float((card_logits - host_logits).abs().max()))
+        tols.append(SERVE_TOL[cfg.dtype]
+                    * max(1.0, float(host_logits.abs().max())))
+    err, tol = errs[0], tols[0]
+    decode_worst = max(range(1, n_tokens), key=lambda i: errs[i] / tols[i],
+                       default=None)
+    near = []
+    for r in range(2):
+        got, want = full[r].cpu().tolist(), host_tokens[r].tolist()
+        i = next((i for i in range(n_tokens) if got[i] != want[i]), None)
+        if i is None:
+            continue
+        near.append((r, i, margins[i][r]))
+        if margins[i][r] >= tol:
+            fail(f"{label}: row {r} step {i}: card token {got[i]} vs host "
+                 f"{want[i]} with a host top-2 margin of {margins[i][r]}")
+    print(f"{label}: engine {cfg.name} {cfg.dtype} (host {host_cfg.dtype}), "
+          f"batch {B} x {S}: prefill "
+          f"{prefill_s:.4f} s"
+          + (f", {n_tokens} tokens in {out['total_s']:.4f} s "
+             f"({out['decode_ms']:.3f} ms per decode step, "
+             f"{out['tokens_per_s']:.1f} tokens/s)" if n_tokens > 1 else "")
+          + f"; host run of 2 rows {out['host_s']:.3f} s, last-token prefill "
+          f"logits max |card - host| {err:.3g} (tolerance {tol:.3g}), "
+          + (f"decode logits fed the host's tokens max |card - host| "
+             f"{errs[decode_worst]:.3g} at step {decode_worst} (tolerance "
+             f"{tols[decode_worst]:.3g}) over {n_tokens - 1} steps, "
+             if decode_worst is not None else "")
+          + f"greedy tokens "
+          f"{'equal' if not near else 'equal up to near ties'}"
+          f"{''.join(f'; row {r} diverges at step {i} (host top-2 margin {m:.3g})' for r, i, m in near)}",
+          flush=True)
+    if not err <= tol:
+        fail(f"{label}: prefill logits differ by {err} (tolerance {tol})")
+    for i in range(1, n_tokens):
+        if not errs[i] <= tols[i]:
+            fail(f"{label}: decode step {i}'s logits, fed the host's tokens, "
+                 f"differ by {errs[i]} (tolerance {tols[i]})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: a bf16 lineage of full-width qwen3-0.6b, committed, checked out
+# and served
+# ---------------------------------------------------------------------------
+
+BF16_ARCH = "qwen3-0.6b"
+BF16_NODES = ("base", "ft1", "ft2", "task-head")
+BF16_CHECKOUT = ("ft2", "task-head")
+# finetune noise, drawn in f32 and narrowed: it must exceed the weights'
+# bf16 ulp (about 1.2e-4 at the 0.03 of a 1024-wide layer) or the children
+# round back onto their parents
+BF16_FT_SCALE = 1e-3
+
+
+def bf16_lineage(cfg, seed):
+    """{node: flat bf16 carriers}: random qwen3-0.6b weights drawn on the
+    card from ``seed``, two sparse finetunes (density 0.3) and task-head
+    (ft1 with the last layer's slice of layers/mlp/w_out re-drawn: its
+    delta overflows int8). Returns (params, {node: share of elements that
+    differ from the parent})."""
+    import numpy as np
+    import torch
+
+    from repro_torch.common import bf16
+    from repro_torch.kernels.ref import to_bfloat16
+    from repro_torch.models import init_params
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    base = init_params(cfg, generator=gen)
+    tensors, changed = {"base": base}, {}
+
+    def finetune_bf16(parent):
+        out, moved, total = {}, 0, 0
+        for k, v in parent.items():
+            noise = torch.randn(v.shape, generator=gen, device="cuda")
+            keep = torch.rand(v.shape, generator=gen, device="cuda") < 0.3
+            out[k] = to_bfloat16(v.float() + noise * keep * BF16_FT_SCALE)
+            moved += int((out[k].view(torch.int16)
+                          != v.view(torch.int16)).sum())
+            total += v.numel()
+        return out, moved / total
+
+    tensors["ft1"], changed["ft1"] = finetune_bf16(base)
+    tensors["ft2"], changed["ft2"] = finetune_bf16(tensors["ft1"])
+    head = dict(tensors["ft1"])
+    w_out = head["layers/mlp/w_out"].clone()
+    fan_in = w_out.shape[-2]
+    w_out[-1] = to_bfloat16(torch.randn(w_out.shape[1:], generator=gen,
+                                        device="cuda") / np.sqrt(fan_in))
+    head["layers/mlp/w_out"] = w_out
+    tensors["task-head"] = head
+    changed["task-head"] = int(
+        (w_out.view(torch.int16) != tensors["ft1"]["layers/mlp/w_out"]
+         .view(torch.int16)).sum()) / sum(v.numel() for v in base.values())
+    params = {n: {k: bf16.from_torch(v) for k, v in flat.items()}
+              for n, flat in tensors.items()}
+    del tensors, base, head
+    torch.cuda.empty_cache()
+    return params, changed
+
+
+def bf16_path(workdir, card, seed):
+    """Phase 4d: a bf16 lineage of full-width qwen3-0.6b committed and
+    checked out through the card's store (bf16 delta_quantize and
+    dequant_apply), its refs equal to a host store's; a ModelPool view of
+    ft2 on the card equal to the host checkout bit for bit; ServeEngine on
+    it (bf16 flash attention). Returns the launch counts of its run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.common import bf16
+    from repro_torch.common.hashing import tensor_hash
+    from repro_torch.kernels.ref import quant_scale
+    from repro_torch.models import get_config
+    from repro_torch.serve import ModelPool
+    from repro_torch.store import ArtifactStore
+
+    cfg = get_config(BF16_ARCH)     # its own dtype: bfloat16
+    t0 = time.perf_counter()
+    params, changed = bf16_lineage(cfg, seed)
+    n_params = sum(v.size for v in params["base"].values())
+    nbytes = sum(v.nbytes for v in params["base"].values())
+    print(f"bf16 path: {cfg.name} {cfg.dtype} at full width ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}): "
+          f"{n_params} params, {nbytes} bytes per model, {len(BF16_NODES)} "
+          f"models made in {time.perf_counter() - t0:.3f} s; share of "
+          f"elements changed from the parent "
+          f"{json.dumps({k: round(v, 6) for k, v in changed.items()})}",
+          flush=True)
+    if min(changed.values()) <= 0.0:
+        fail(f"bf16 path: a finetune rounded back onto its parent: {changed}")
+    root, host_root = (os.path.join(workdir, d) for d in ("bf16", "bf16-host"))
+    zero_launches()
+    t0 = time.perf_counter()
+    store = commit_lineage(root, cfg.name, params, chunk_threshold=0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    store2, refs, out = check_out(root, BF16_CHECKOUT, chunk_threshold=0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    pool = ModelPool(ArtifactStore(root=root, chunk_threshold=0), verify=True)
+    view = pool.get(refs["ft2"])
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    served = serve_view("bf16 path", cfg, view.params, gen, n_tokens=32)
+    launches = read_launches("lineage_bf16")
+    by_dtype = LAUNCHES_BY_DTYPE["lineage_bf16"]
+    ratio = store.compression_ratio()
+    print(f"bf16 path: commit {t1 - t0:.3f} s, checkout of "
+          f"{'+'.join(BF16_CHECKOUT)} {t2 - t1:.3f} s, compression ratio "
+          f"{ratio:.3f}, ft2 view built in {view.build_s:.3f} s "
+          f"({view.private_bytes} private bytes, "
+          f"{len(view.aliased)} params aliased); launches "
+          f"{json.dumps(launches)}, by dtype "
+          f"{json.dumps(by_dtype, sort_keys=True)} ({card})", flush=True)
+
+    # the same lineage through a host store: the same refs and bits
+    t4 = time.perf_counter()
+    commit_lineage(host_root, cfg.name, params, chunk_threshold=0,
+                   backend="ref")
+    _, host_refs, host = check_out(host_root, BF16_CHECKOUT,
+                                   chunk_threshold=0, backend="ref")
+    t5 = time.perf_counter()
+    if refs != host_refs:
+        fail(f"bf16 path: manifest refs {refs} differ from the host's "
+             f"{host_refs}")
+    step = float(np.float32(quant_scale(EPS)))
+    worst = 0.0
+    for node, tensors in out.items():
+        manifest = store2.get_manifest(refs[node])["params"]
+        for key, value in tensors.items():
+            value = np.asarray(value)
+            if (not bf16.is_bf16(value)
+                    or tensor_hash(value) != manifest[key]["hash"]
+                    or not np.array_equal(value.view(np.uint16), np.asarray(
+                        host[node][key]).view(np.uint16))):
+                fail(f"bf16 path: {node}:{key} is not its manifest's and "
+                     f"the host's bf16 tensor")
+            got, live = bf16.widen(value), bf16.widen(params[node][key])
+            if not np.isfinite(got).all():
+                fail(f"bf16 path: {node}:{key} has non-finite values")
+            # a hop quantizes against the parent's stored truth (error
+            # within one step, never compounding) and rounds to bf16
+            err = np.abs(got - live)
+            worst = max(worst, float(err.max()))
+            if not (err <= step + np.abs(live) * 2.0 ** -8).all():
+                fail(f"bf16 path: {node}:{key} is {float(err.max())} from "
+                     f"the live weights")
+    for key, value in view.params.items():
+        if not np.array_equal(np.asarray(value).view(np.uint16),
+                              np.asarray(host["ft2"][key]).view(np.uint16)):
+            fail(f"bf16 path: the card's ft2 view differs from the host "
+                 f"checkout at {key}")
+    report = store2.fsck(list(refs.values()))
+    if not report["ok"]:
+        fail(f"bf16 path: fsck is not clean: "
+             f"{ {k: report[k] for k in ('corrupt', 'missing_objects', 'refcount_drift')} }")
+    print(f"bf16 path: host store commit + checkout {t5 - t4:.3f} s, refs "
+          f"equal; checkouts hash-exact and equal to the host's, max "
+          f"|checkout - live| {worst:.3g}; ft2 view equals the host "
+          f"checkout; fsck clean; phase took {t5 - t0:.3f} s "
+          f"(pool view {t3 - t2:.3f} s)", flush=True)
+    missing = [k for k, key in (("delta_quantize", "bfloat16"),
+                                ("dequant_apply", "bfloat16->bfloat16"),
+                                ("flash_attention", "bfloat16"))
+               if not by_dtype[k].get(key)]
+    if missing:
+        fail(f"bf16 path: no bf16 launch of {', '.join(missing)}")
     return launches
 
 
@@ -942,6 +1401,9 @@ SERVE_MAX_LEN = 544      # a 512-token prompt + 32 new tokens
 # and the plain attention); greedy steps whose top-2 margin on the host is
 # below it may pick the other token
 SERVE_LOGIT_TOL = 1e-3
+# the same for 16-bit engines (phases 4c and 4d), relative to the logits'
+# magnitude: the flash kernel's tolerances of those dtypes
+SERVE_TOL = {"float16": FLASH_TOL["float16"], "bfloat16": FLASH_TOL["bfloat16"]}
 
 
 def _http(url, body=None):
@@ -1099,8 +1561,8 @@ def serve_http(cfg, root, refs, pool, gen):
 
 def _greedy_host(cfg, params, tokens, n):
     """Greedy tokens and each step's top-2 logit margin, on the host, with
-    the engine's own step functions. Returns (prefill logits, tokens,
-    margins)."""
+    the engine's own step functions. Returns (each step's logits, the
+    prefill's first, tokens, margins)."""
     import torch
 
     from repro_torch.serve import make_prefill_step, make_serve_step
@@ -1108,9 +1570,9 @@ def _greedy_host(cfg, params, tokens, n):
     with torch.inference_mode():
         logits, cache = make_prefill_step(cfg, SERVE_MAX_LEN)(
             params, {"tokens": tokens})
-        first = logits.clone()
-        out, margins = [], []
+        out, margins, steps = [], [], []
         for i in range(n):
+            steps.append(logits.clone())
             top = torch.topk(logits, 2, dim=-1).values
             margins.append((top[:, 0] - top[:, 1]).tolist())
             token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
@@ -1118,7 +1580,27 @@ def _greedy_host(cfg, params, tokens, n):
             if i < n - 1:
                 _, logits, cache = step(params, cache, token,
                                         tokens.shape[1] + i)
-    return first, torch.cat(out, dim=1), margins
+    return steps, torch.cat(out, dim=1), margins
+
+
+def _forced_logits(cfg, params, tokens, forced):
+    """Each step's logits of the engine's step functions on ``params``'
+    device when step i is fed ``forced[:, i]`` (teacher forcing), on the
+    host as float32: the prefill's, then one per decode step."""
+    import torch
+
+    from repro_torch.serve import make_prefill_step, make_serve_step
+    step = make_serve_step(cfg)
+    with torch.inference_mode():
+        logits, cache = make_prefill_step(cfg, SERVE_MAX_LEN)(
+            params, {"tokens": tokens})
+        steps = [logits.float().cpu()]
+        for i in range(forced.shape[1] - 1):
+            token = forced[:, i:i + 1].to(tokens.device)
+            _, logits, cache = step(params, cache, token,
+                                    tokens.shape[1] + i)
+            steps.append(logits.float().cpu())
+    return steps
 
 
 def serve_engine(cfg, pool, refs, gen):
@@ -1179,8 +1661,9 @@ def serve_engine(cfg, pool, refs, gen):
                                  SERVE_MAX_LEN)
     host_params = to_params(flat, "cpu")
     t0 = time.perf_counter()
-    host_logits, host_tokens, margins = _greedy_host(
+    host_steps, host_tokens, margins = _greedy_host(
         cfg, host_params, rows.cpu(), 32)
+    host_logits = host_steps[0]
     host_s = time.perf_counter() - t0
     card_logits = card_logits.cpu()
     if not (torch.isfinite(card_logits).all() and
@@ -1228,7 +1711,7 @@ def serving_path(cfg, workdir, seed):
     serve_http(cfg, root, refs, pool, gen)
     serve_engine(cfg, pool, refs, cuda_gen)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = read_launches("serving")
     print(f"serving: phase took {time.perf_counter() - t0:.3f} s, launches "
           f"{json.dumps(launches)}", flush=True)
     return launches
@@ -1478,7 +1961,7 @@ def checkpoint_path(cfg, workdir, card, seed):
           f"clean", flush=True)
     if fp.launches != 10 * BIG_LEAVES:
         fail(f"checkpoint: {fp.launches} fingerprint launches in 10 saves")
-    launches = read_launches()
+    launches = read_launches("checkpoint")
     stats = {k: v - stats0.get(k, 0) for k, v in CKPT_STATS.snapshot().items()}
     print(f"checkpoint: CKPT_STATS {json.dumps(stats)}; launches "
           f"{json.dumps(launches)}", flush=True)
@@ -1496,11 +1979,15 @@ PROBE_BATCH, PROBE_SEQ = 8, 128
 # moves it by hundreds
 GATE_TOL = 0.5
 WORKFLOW_ARCH = "paper-bert"
+# phase 7's depth, cut for time (its commits and probe tests are host work
+# that scales with the layers): 4 of paper-bert's 12 layers, full width
+WORKFLOW_LAYERS = 4
 
 
 def workflow_config():
     from repro_torch.models import get_config
-    return dataclasses.replace(get_config(WORKFLOW_ARCH), dtype="float32")
+    return dataclasses.replace(get_config(WORKFLOW_ARCH), dtype="float32",
+                               n_layers=WORKFLOW_LAYERS)
 
 
 def probe_score(model) -> float:
@@ -1729,7 +2216,8 @@ def workflow_merge_diff(g, root, seed):
     # edit-b changes the token embedding: a contextual hash never sees
     # the content of a key without a "/" (lm_head, final_norm), in the
     # reference as here, so a lm_head-only edit would merge as no change
-    edits = {"edit-a": edit_of(base, trunk, gen, layers=6),
+    edits = {"edit-a": edit_of(base, trunk, gen,
+                               layers=max(1, WORKFLOW_LAYERS // 2)),
              "edit-b": edit_of(base, ["embed/tok"], gen)}
     for name, flat in edits.items():
         g.add_node(to_artifact(flat, WORKFLOW_ARCH), name)
@@ -1760,7 +2248,8 @@ def workflow_merge_diff(g, root, seed):
             conflict.conflicting_layers:
         fail(f"workflow merge: a pair that both change layer 0 gave "
              f"{conflict.status} {conflict.conflicting_layers}")
-    print(f"workflow merge: edit-a (first 6 encoder layers) + edit-b "
+    print(f"workflow merge: edit-a (first {max(1, WORKFLOW_LAYERS // 2)} "
+          f"encoder layers) + edit-b "
           f"(token embedding) -> {result.status} ({result.detail}, probe "
           f"{json.dumps(result.test_results)}) in {merge_s:.3f} s, every "
           f"merged tensor is its pick bit for bit; edit-a + a layer-0 "
@@ -1874,9 +2363,9 @@ def workflow_path(workdir, card, seed):
         fn = Finetune(seed=seed + task_seed)
         g.add_node(fn([g.nodes[parent]]), name, cr=fn)
         g.add_edge(parent, name)
-    print(f"workflow: {cfg.name} f32 lineage base -> task-a -> task-a-sub, "
-          f"base -> task-b in {time.perf_counter() - t0:.3f} s ({card})",
-          flush=True)
+    print(f"workflow: {cfg.name} f32 (depth cut to {cfg.n_layers} layers) "
+          f"lineage base -> task-a -> task-a-sub, base -> task-b in "
+          f"{time.perf_counter() - t0:.3f} s ({card})", flush=True)
     runner = DiagnosticsRunner(g)
     gate = TestGate(graph=g, runner=runner, tol=GATE_TOL)
     created, cascade_s = workflow_cascade(g, Finetune, gate, runner, seed)
@@ -1887,7 +2376,7 @@ def workflow_path(workdir, card, seed):
                                        "merge(edit-a,edit-b)"])
     torch.cuda.synchronize()
     phase_s = time.perf_counter() - t0
-    launches = read_launches()
+    launches = read_launches("workflow")
     print(f"workflow: phase took {phase_s:.3f} s (cascade {cascade_s:.3f} s, "
           f"auto_insert {auto_s:.3f} s, merge {merge_s:.3f} s); launches "
           f"{json.dumps(launches)}; delta_quantize "
@@ -1909,9 +2398,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    # f32 products in full f32 on the card (no TF32), as on the host
+    # f32 products in full f32 on the card (no TF32), and 16-bit products
+    # summed in f32 (no reduced-precision reduction), as on the host
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     from repro_torch.kernels import build
     from repro_torch.models import get_config
 
@@ -1955,6 +2447,7 @@ def main() -> int:
         launches = {"lineage": main_path(cfg, params, workdir, card)}
         launches["serving"] = serving_path(cfg, workdir, args.seed)
         launches["lineage_f16"] = f16_path(cfg, params, workdir, card)
+        launches["lineage_bf16"] = bf16_path(workdir, card, args.seed)
         chunked_path(cfg, params, workdir)
         del params
         launches["checkpoint"] = checkpoint_path(cfg, workdir, card,
@@ -1977,6 +2470,13 @@ def main() -> int:
         "flash_attention": ("flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:112"),
     }
+    def dtype_launches(name, dtype):
+        """Launches of kernel ``name`` on all paths whose first operand is
+        ``dtype``."""
+        return sum(n for path in LAUNCHES_BY_DTYPE.values()
+                   for key, n in path[name].items()
+                   if key.split("->")[0].split("+")[0] == dtype)
+
     kernels = []
     for name, (source, where) in replaces.items():
         t = timing[name]
@@ -1985,20 +2485,36 @@ def main() -> int:
             "replaces": where,
             "launches": sum(path[name] for path in launches.values()),
             "launches_by_path": {p: n[name] for p, n in launches.items()},
+            "launches_by_dtype": {p: n[name]
+                                  for p, n in LAUNCHES_BY_DTYPE.items()},
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"]})
-        if "f16" in t:
-            kernels[-1]["f16"] = t["f16"]
+        for sub, dtype in (("f16", "float16"), ("bf16", "bfloat16")):
+            if sub in t:    # the storage kernels' 16-bit instantiations
+                kernels[-1][sub] = dict(
+                    t[sub], launches=dtype_launches(name, dtype),
+                    max_abs_err=errs[name])
         if name == "flash_attention":
             kernels[-1].update(
                 {key: t[key] for key in (
                     "ms_bf16", "library_ms_bf16", "bound_ms_bf16",
                     "bound_by_bf16", "eager_ms", "eager_ms_bf16",
                     "library_eager_ms", "library_eager_ms_bf16",
-                    "qwen3_0_6b")},
+                    "qwen3_0_6b", "qwen3_0_6b_serve")},
                 max_abs_err_bf16=errs[f"{name}_bf16"])
+            for dtype, tag, sub in FLASH_DTYPES[1:]:
+                kernels[-1][sub] = {
+                    "ms": t[f"ms{tag}"], "plain_ms": t[f"plain_ms{tag}"],
+                    "bound_ms": t[f"bound_ms{tag}"],
+                    "bound_by": t[f"bound_by{tag}"],
+                    "library_ms": t[f"library_ms{tag}"],
+                    "eager_ms": t[f"eager_ms{tag}"],
+                    "library_eager_ms": t[f"library_eager_ms{tag}"],
+                    "shape": t["shape"],
+                    "launches": dtype_launches(name, dtype),
+                    "max_abs_err": errs[f"{name}{tag}"]}
     for k in kernels:
         library = ("" if k["library_ms"] is None
                    else f", library {k['library_ms']:.4f} ms")
@@ -2007,14 +2523,18 @@ def main() -> int:
               f"{library}), "
               f"{k['launches']} launches on the main paths "
               f"{json.dumps(k['launches_by_path'])}", flush=True)
-        if "f16" in k:
-            f = k["f16"]
-            print(f"kernel {k['name']} f16: {f['ms']:.4f} ms at {f['shape']} "
-                  f"(bound {f['bound_ms']:.4f} ms, plain "
-                  f"{f['plain_ms']:.4f} ms)", flush=True)
+        for sub in ("f16", "bf16"):
+            if sub in k and k["name"] != "flash_attention":
+                f = k[sub]
+                print(f"kernel {k['name']} {sub}: {f['ms']:.4f} ms at "
+                      f"{f['shape']} (bound {f['bound_ms']:.4f} ms, plain "
+                      f"{f['plain_ms']:.4f} ms), {f['launches']} launches",
+                      flush=True)
     flash = timing["flash_attention"]
-    for label, t in (("serving", flash), ("qwen3-0.6b", flash["qwen3_0_6b"])):
-        for dt, tag in (("f32", ""), ("bf16", "_bf16")):
+    for label, t in (("serving", flash), ("qwen3-0.6b", flash["qwen3_0_6b"]),
+                     ("qwen3-0.6b serving",
+                      flash["qwen3_0_6b_serve"])):
+        for _, tag, dt in FLASH_DTYPES:
             print(f"flash_attention {label} {t['shape']} {dt}: "
                   f"{t['ms' + tag]:.4f} ms per call on the device (eager "
                   f"{t['eager_ms' + tag]:.4f}), bound "

@@ -12,13 +12,18 @@ import hashlib
 
 import numpy as np
 
+from repro_torch.common.bf16 import dtype_name
+
 
 def tensor_hash(x) -> str:
-    """SHA-256 content hash of a tensor (value + shape + dtype)."""
+    """SHA-256 content hash of a tensor (value + shape + dtype).
+
+    The dtype enters by its numpy name, so a bf16 carrier hashes as
+    ``bfloat16``, as the reference's ``ml_dtypes`` arrays do."""
     arr = np.asarray(x)
     h = hashlib.sha256()
     h.update(str(arr.shape).encode())
-    h.update(str(arr.dtype).encode())
+    h.update(dtype_name(arr).encode())
     h.update(np.ascontiguousarray(arr).tobytes())
     return h.hexdigest()
 
@@ -36,7 +41,7 @@ class TensorHasher:
     def __init__(self, shape, dtype) -> None:
         self._h = hashlib.sha256()
         self._h.update(str(tuple(int(d) for d in shape)).encode())
-        self._h.update(str(np.dtype(dtype)).encode())
+        self._h.update(dtype_name(dtype).encode())
 
     def update(self, data) -> None:
         self._h.update(data)

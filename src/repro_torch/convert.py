@@ -9,8 +9,9 @@ parameters, model type and metadata commit to the same manifest in both
 packages.
 
 The store keeps parameters as numpy arrays, and numpy has no bfloat16
-here, so bf16 parameters raise ``NotImplementedError`` until the bf16
-storage path arrives.
+here: a bf16 parameter (a ``torch.bfloat16`` tensor, or an ``ml_dtypes``
+array from the reference package) becomes the bf16 carrier of
+``common/bf16.py``, its bits in a uint16 array named ``bfloat16``.
 
 :func:`to_params` turns a flat ``{path: array}`` dict (a serving view's
 parameters, or the reference's ``flatten_state(init_params(cfg))``) into
@@ -29,27 +30,24 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.common import bf16
 from repro_torch.common.tree import is_namedtuple
 from repro_torch.core.artifact import ModelArtifact
-from repro_torch.kernels.build import BF16_ITEM
 from repro_torch.models.graph import state_graph
 from repro_torch.models.model import _nested
 from repro_torch.optim.adamw import OptState
 
 
 def to_numpy(value) -> np.ndarray:
-    """A contiguous host numpy array of ``value`` (array or tensor)."""
+    """A contiguous host numpy array of ``value`` (array or tensor); bf16
+    as the bf16 carrier."""
     if isinstance(value, torch.Tensor):
         if value.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                f"bfloat16 parameters cannot be stored yet: ROADMAP item "
-                f"'{BF16_ITEM}'")
+            return bf16.from_torch(value)
         value = value.detach().cpu().numpy()
     arr = np.asarray(value)
-    if arr.dtype.name == "bfloat16":
-        raise NotImplementedError(
-            f"bfloat16 parameters cannot be stored yet: ROADMAP item "
-            f"'{BF16_ITEM}'")
+    if arr.dtype.name == "bfloat16":   # an ml_dtypes array
+        arr = bf16.carry(arr.view(np.uint16))
     # np.ascontiguousarray would turn a 0-dim array into a 1-D one
     return arr if arr.flags.c_contiguous else np.ascontiguousarray(arr)
 
@@ -62,12 +60,18 @@ def to_artifact(flat: Mapping[str, Any], model_type: str,
                          model_type=model_type, metadata=dict(metadata or {}))
 
 
+def to_tensor(value, device="cpu") -> torch.Tensor:
+    """An array (or tensor) as a tensor of the same dtype and shape on
+    ``device``; the bf16 carrier as ``torch.bfloat16``. Arrays are copied."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    return bf16.to_torch(to_numpy(value), copy=True).to(device)
+
+
 def to_params(flat: Mapping[str, Any], device="cpu") -> Dict[str, Any]:
     """The nested parameter tree of ``flat``: every array (or tensor) a
     tensor of the same dtype and shape on ``device``."""
-    return _nested({k: v.to(device) if isinstance(v, torch.Tensor)
-                    else torch.tensor(to_numpy(v), device=device)
-                    for k, v in flat.items()})
+    return _nested({k: to_tensor(v, device) for k, v in flat.items()})
 
 
 def state_from_reference(state: Any, device="cpu") -> Any:
@@ -88,4 +92,4 @@ def state_from_reference(state: Any, device="cpu") -> Any:
         return type(state)(*values)
     if isinstance(state, (list, tuple)):
         return type(state)(state_from_reference(v, device) for v in state)
-    return torch.from_numpy(np.array(to_numpy(state))).to(device)
+    return to_tensor(state, device)

@@ -19,6 +19,7 @@ from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.common.bf16 import dtype_name, np_dtype
 from repro_torch.common.hashing import tensor_hash
 from repro_torch.core.graphir import LayerGraph
 
@@ -53,9 +54,9 @@ class ParamRef:
 
     @property
     def nbytes(self) -> int:
-        return int(np.prod(self.shape, dtype=np.int64) *
-                   np.dtype(self.dtype).itemsize) if self.shape else \
-            np.dtype(self.dtype).itemsize
+        item = np_dtype(self.dtype).itemsize
+        return int(np.prod(self.shape, dtype=np.int64) * item) \
+            if self.shape else item
 
     def materialize(self) -> np.ndarray:
         return self.store.materialize_param(self.ref, self.key)
@@ -118,7 +119,7 @@ class LazyParams(MutableMapping):
         """(shape, dtype) without touching tensor data."""
         if key in self._overrides:
             v = self._overrides[key]
-            return tuple(np.shape(v)), str(np.asarray(v).dtype)
+            return tuple(np.shape(v)), dtype_name(np.asarray(v))
         r = self._refs[key]
         return tuple(r.shape), r.dtype
 

@@ -154,7 +154,6 @@ def launch(name: str, fn: str, device: torch.device, *args) -> None:
 
 # -- checks every wrapper makes before it launches ---------------------------
 
-BF16_ITEM = "bf16 storage path without ml_dtypes"
 MAX_ELEMENTS = 2**31 - 1   # the kernels' counts are int32
 
 
@@ -183,24 +182,27 @@ def on_card(*tensors: torch.Tensor) -> bool:
 def require_dtype(dtype: torch.dtype, allowed: Sequence[torch.dtype],
                   what: str) -> None:
     """Raise unless ``dtype`` is one of ``allowed``: NotImplementedError for
-    a float type a float kernel does not take (bfloat16 names the ROADMAP
-    item it waits for), TypeError for anything else."""
+    a float type a float kernel does not take, TypeError for anything
+    else."""
     if dtype in allowed:
         return
     names = " and ".join(str(a).removeprefix("torch.") for a in allowed)
     if dtype.is_floating_point and any(a.is_floating_point for a in allowed):
-        waits = (f"; bfloat16 waits for the ROADMAP item '{BF16_ITEM}'"
-                 if dtype == torch.bfloat16 else "")
         raise NotImplementedError(
-            f"{what} is {dtype}: this CUDA kernel takes {names}{waits}")
+            f"{what} is {dtype}: this CUDA kernel takes {names}")
     raise TypeError(f"{what} is {dtype}, expected {names}")
 
 
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
+def count_launch(wrapper, dtype: str = "") -> None:
     """Add one to ``wrapper.launches``, the count a run reads to show that
-    it went through the kernel. Called right after each launch."""
+    it went through the kernel, and to ``wrapper.launches_by_dtype[dtype]``
+    when the launch names its operand types. Called right after each
+    launch."""
     with _count_lock:
         wrapper.launches += 1
+        if dtype:
+            by = wrapper.launches_by_dtype
+            by[dtype] = by.get(dtype, 0) + 1

@@ -28,11 +28,13 @@
 //   next tile loads while the consumers run the current one's products.
 // - Tiles are 128-byte rows, 128-byte swizzled, as wgmma's descriptors
 //   read them; a head dim over 128 bytes is stored as column slabs.
-// - bf16: S = Q K^T is wgmma m64n64k16 from shared memory (q and k both
-//   K-major, as stored); the online softmax runs on the f32 accumulator
-//   registers, scaled by hd^-0.5 in f32 after the product; P is rounded to
-//   bf16 in registers and is wgmma's A operand for O += P V, with V the B
-//   operand read MN-major through the descriptor's transpose bit.
+// - bf16 and f16 (one path, T the 16-bit type): S = Q K^T is wgmma
+//   m64n64k16 from shared memory (q and k both K-major, as stored); the
+//   online softmax runs on the f32 accumulator registers, scaled by
+//   hd^-0.5 in f32 after the product; P is rounded to T in registers and is
+//   wgmma's A operand for O += P V, with V the B operand read MN-major
+//   through the descriptor's transpose bit. The f16 path is the bf16 one
+//   with wgmma's f16 operand type and f16 rounding of P and the output.
 // - f32: 3xTF32 on wgmma m64nNk8.tf32. Each operand x is split once into
 //   big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big), and each
 //   product is small*big + big*small + big*big, accumulated in f32: one
@@ -60,6 +62,9 @@
 // pads hd to a multiple of 8 and passes 16-byte aligned tensors.
 #include <cuda.h>   // CUtensorMap and its enums; the entry point is fetched at run time
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -154,57 +159,81 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (+)= A @ B^T for a 64 x 16 bf16 A and a 64 x 16 bf16 B, both K-major
+// d (+)= A @ B^T for a 64 x 16 16-bit A and a 64 x 16 16-bit B, both K-major
 // in shared memory; d is the m64n64 f32 accumulator.
+#define MGIT_WGMMA_M64N64K16_SS(AB) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                                   int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  if constexpr (std::is_same<T, __half>::value) {
+    MGIT_WGMMA_M64N64K16_SS("f16");
+  } else {
+    MGIT_WGMMA_M64N64K16_SS("bf16");
+  }
 }
+#undef MGIT_WGMMA_M64N64K16_SS
 
-// d += A @ B for a 64 x 16 bf16 A in registers and a 16 x 64 bf16 B in
+// d += A @ B for a 64 x 16 16-bit A in registers and a 16 x 64 16-bit B in
 // shared memory, MN-major (the transpose bit set); d is m64n64 f32.
+#define MGIT_WGMMA_M64N64K16_RS(AB) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t* a,
                                                   uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (std::is_same<T, __half>::value) {
+    MGIT_WGMMA_M64N64K16_RS("f16");
+  } else {
+    MGIT_WGMMA_M64N64K16_RS("bf16");
+  }
 }
+#undef MGIT_WGMMA_M64N64K16_RS
 
-// d += A @ B for a 64 x 16 bf16 A in registers and a 16 x 128 bf16 B in
+// d += A @ B for a 64 x 16 16-bit A in registers and a 16 x 128 16-bit B in
 // shared memory, MN-major (the transpose bit set); d is m64n128 f32.
+#define MGIT_WGMMA_M64N128K16_RS(AB) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t* a,
                                                   uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (std::is_same<T, __half>::value) {
+    MGIT_WGMMA_M64N128K16_RS("f16");
+  } else {
+    MGIT_WGMMA_M64N128K16_RS("bf16");
+  }
 }
+#undef MGIT_WGMMA_M64N128K16_RS
 
 // ---------------------------------------------------------------------------
 // 3xTF32 (f32)
@@ -424,6 +453,22 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+
+// Two f32 values rounded to nearest in the 16-bit type T, packed as one
+// 32-bit wgmma A register (the first in the low half).
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 two = __floats2half2_rn(a, b);
+    return *reinterpret_cast<uint32_t*>(&two);
+  } else {
+    __nv_bfloat162 two = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<uint32_t*>(&two);
+  }
+}
 
 // o / l for rows row0 and row0 + 8 of the output, columns < hd.
 template <typename T, int N>
@@ -585,7 +630,7 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
 #pragma unroll
         for (int k = 0; k < HD / 16; ++k) {
           const int off = (k / 4) * kBM * kRowBytes + (k % 4) * 32;
-          wgmma_m64n64k16_ss(s, smem_desc(sm.q(wg) + off, 16, 1024),
+          wgmma_m64n64k16_ss<T>(s, smem_desc(sm.q(wg) + off, 16, 1024),
                              smem_desc(sm.k(st) + off, 16, 1024), k > 0);
         }
         wgmma_commit();
@@ -593,14 +638,14 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
         fence_regs(s);
         softmax_step(P, s, m, l, alpha, row0, k_start, c, tile_needs_mask(P, q0, k_start));
         rescale(o, alpha);
-        // P as bf16 A fragments: k16 step kk is key chunks 2kk and 2kk + 1
+        // P as 16-bit A fragments (T, rounded to nearest): k16 step kk is
+        // key chunks 2kk and 2kk + 1
         uint32_t pa[kBN / 4];
 #pragma unroll
         for (int kk = 0; kk < kBN / 16; ++kk) {
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
-            __nv_bfloat162 two = __floats2bfloat162_rn(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-            pa[4 * kk + r] = *reinterpret_cast<uint32_t*>(&two);
+            pa[4 * kk + r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
           }
         }
         // O += P V: V is (keys, HD) as stored, MN-major; 16 keys per step
@@ -610,9 +655,9 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
         for (int kk = 0; kk < kBN / 16; ++kk) {
           const uint64_t dv = smem_desc(sm.v(st) + kk * 16 * kRowBytes, kBN * kRowBytes, 1024);
           if constexpr (HD == 64)
-            wgmma_m64n64k16_rs(o, pa + 4 * kk, dv);
+            wgmma_m64n64k16_rs<T>(o, pa + 4 * kk, dv);
           else
-            wgmma_m64n128k16_rs(o, pa + 4 * kk, dv);
+            wgmma_m64n128k16_rs<T>(o, pa + 4 * kk, dv);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -734,7 +779,9 @@ static bool make_map(CUtensorMap* map, const void* ptr, int heads, int seq, int 
   const cuuint32_t box[3] = {kRowBytes / (cuuint32_t)sizeof(T), (cuuint32_t)kBM, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUtensorMapDataType type =
-      sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+      : sizeof(T) == 2               ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -768,7 +815,7 @@ static int dispatch_hd(const void* q, const void* k, const void* v, void* out, i
 
 // out (B, Hq, Sq, hd) = attention of q (B, Hq, Sq, hd) over k, v
 // (B, Hkv, Skv, hd); all contiguous, 16-byte aligned, of one dtype: 0 =
-// f32, 1 = bf16. hd <= 128, hd % 8 == 0 and Hq % Hkv == 0 are the
+// f32, 1 = bf16, 2 = f16. hd <= 128, hd % 8 == 0 and Hq % Hkv == 0 are the
 // wrapper's to arrange; scale multiplies the scores.
 extern "C" int mgit_flash_attention(const void* q, const void* k, const void* v, void* out,
                                     int B, int Hq, int Hkv, int Sq, int Skv, int hd, int causal,
@@ -779,5 +826,6 @@ extern "C" int mgit_flash_attention(const void* q, const void* k, const void* v,
   const Problem P{Hq, Hkv, Sq, Skv, hd, causal, window, prefix_len, scale * kLog2e};
   if (dtype == 0) return dispatch_hd<float>(q, k, v, out, B, P, stream);
   if (dtype == 1) return dispatch_hd<__nv_bfloat16>(q, k, v, out, B, P, stream);
+  if (dtype == 2) return dispatch_hd<__half>(q, k, v, out, B, P, stream);
   return (int)cudaErrorInvalidValue;
 }

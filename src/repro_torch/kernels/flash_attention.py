@@ -9,8 +9,9 @@ f32. Query and key positions both count from 0, so causal, sliding-window
 (``q - k < window``) and prefix-LM (``k < prefix_len`` is visible under a
 causal mask) masks are the reference's.
 
-The kernel runs on Hopper's tensor cores through ``wgmma``: bf16 directly,
-f32 as three TF32 passes (3xTF32), with k and v tiles loaded by TMA into
+The kernel runs on Hopper's tensor cores through ``wgmma``: bf16 and f16
+directly (P rounded to the input's type for the second product), f32 as
+three TF32 passes (3xTF32), with k and v tiles loaded by TMA into
 a ring in shared memory. A block owns 64 query rows (128 for f32 at head
 dim 64) and walks the 64-key tiles some of them can see. It takes head
 dims that are a multiple of 8 up to 128; the wrapper pads any other head
@@ -23,7 +24,7 @@ visible once the prefix reaches past a query block.
 
 On CPU tensors the wrapper runs ``flash_attention_ref``; on CUDA tensors
 it launches its kernel or raises. Its ``launches`` attribute counts
-kernel launches.
+kernel launches, and ``launches_by_dtype`` counts them by q's dtype.
 """
 
 from __future__ import annotations
@@ -35,11 +36,11 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 HEAD_DIM_MULTIPLE = 8   # the kernel's TMA rows are whole 16-byte units
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # H100 SXM peaks (NVIDIA's data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
-BF16_OPS_PER_S = 989e12
+BF16_OPS_PER_S = 989e12   # and f16
 TF32_OPS_PER_S = 495e12
 TF32_PASSES = 3   # 3xTF32: small*big + big*small + big*big
 
@@ -112,7 +113,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    prefix_len=prefix_len)
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v are {q.dtype}, {k.dtype}, {v.dtype}: the "
-                        f"kernel takes float32 or bfloat16, all one dtype")
+                        f"kernel takes float32, bfloat16 or float16, all "
+                        f"one dtype")
     B, Hq, Sq, hd = q.shape
     _, Hkv, Skv, _ = k.shape
     if hd > MAX_HEAD_DIM:
@@ -126,11 +128,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      out.data_ptr(), B, Hq, Hkv, Sq, Skv, kq.shape[-1],
                      int(causal), int(window), int(prefix_len),
                      float(hd ** -0.5), _DTYPE_CODES[q.dtype])
-        build.count_launch(flash_attention)
+        build.count_launch(flash_attention,
+                           str(q.dtype).removeprefix("torch."))
     return out if kq.shape[-1] == hd else out[..., :hd].contiguous()
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_dtype = {}
 
 
 def flops(B: int, Hq: int, Sq: int, Skv: int, hd: int, *, causal: bool = True,
@@ -156,18 +160,19 @@ def roofline(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, hd: int,
 
     Bytes: q, k, v read once and out written once at the dtype's width,
     over the device memory rate. Operations: ``flops`` over the visible
-    pairs, at the dense bf16 tensor-core rate for bf16, and as three TF32
+    pairs, at the dense bf16 (and f16) tensor-core rate for bf16 and f16,
+    and as three TF32
     passes at the TF32 rate for f32 (the cheapest tensor-core route that
     keeps f32's 2e-5 tolerance, the kernel's)."""
     ops = flops(B, Hq, Sq, Skv, hd, causal=causal, window=window,
                 prefix_len=prefix_len)
-    if dtype == torch.bfloat16:
+    if dtype in (torch.bfloat16, torch.float16):
         ops_s = ops / BF16_OPS_PER_S
     elif dtype == torch.float32:
         ops_s = TF32_PASSES * ops / TF32_OPS_PER_S
     else:
-        raise TypeError(f"no bound for {dtype}: the kernel takes float32 "
-                        f"or bfloat16")
+        raise TypeError(f"no bound for {dtype}: the kernel takes float32, "
+                        f"bfloat16 or float16")
     item = torch.empty((), dtype=dtype).element_size()
     bytes_s = (2 * B * Hq * Sq + 2 * B * Hkv * Skv) * hd * item \
         / HBM_BYTES_PER_S

@@ -27,8 +27,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.common import bf16
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.build import BF16_ITEM
 from repro_torch.kernels.chain_apply import chain_apply_flat
 from repro_torch.kernels.delta_quantize import (delta_quantize_flat,
                                                 dequant_apply_flat)
@@ -77,21 +77,17 @@ def _device(backend: Optional[str]) -> torch.device:
 
 def _to(x, device: torch.device) -> torch.Tensor:
     """``x`` as a contiguous tensor on ``device``. Read-only numpy arrays
-    (CAS views) are copied first: torch cannot wrap them."""
+    (CAS views) are copied first: torch cannot wrap them. A bf16 carrier
+    (``common/bf16.py``) becomes a ``torch.bfloat16`` tensor."""
     if not isinstance(x, torch.Tensor):
-        a = np.asarray(x)
-        if not a.flags.writeable:
-            a = a.copy()
-        x = torch.from_numpy(np.ascontiguousarray(a))
+        x = bf16.to_torch(x)
     return x.to(device).contiguous()
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
-    """``t`` as a numpy array on the host."""
+    """``t`` as a numpy array on the host; bfloat16 as the bf16 carrier."""
     if t.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"bfloat16 results have no numpy dtype here; they wait for the "
-            f"ROADMAP item '{BF16_ITEM}'")
+        return bf16.from_torch(t)
     return t.cpu().numpy()
 
 
@@ -158,8 +154,8 @@ def chain_apply(base, qs, eps: float = 1e-4, out_dtype=None,
     stack = torch.stack([_to(q, dev).to(torch.int32).reshape(b.shape)
                          for q in qs])
     out = chain_apply_flat(b.to(torch.float32), stack, eps)
-    return to_host(out.to(_ref.torch_dtype(out_dtype) if out_dtype is not None
-                        else b.dtype))
+    return to_host(_ref.narrow(out, out_dtype if out_dtype is not None
+                               else b.dtype))
 
 
 def snapshot_fused(p1, p2, eps: float = 1e-4, backend: Optional[str] = None,
@@ -167,18 +163,20 @@ def snapshot_fused(p1, p2, eps: float = 1e-4, backend: Optional[str] = None,
     """One-pass checkpoint snapshot: (q int8|int32, n_zero, fingerprint, narrow).
 
     Narrows q to int8 when every value fits; tensors with overflow fall back
-    to the int32 ``delta_quantize`` (`narrow=False`). ``with_fingerprint=
+    to the int32 ``delta_quantize`` on the operands in their own dtype
+    (`narrow=False`). The fused pass takes f32 casts, as the reference's
+    does. ``with_fingerprint=
     False`` elides the fingerprint (returned as None) — the commit pipeline
     keys objects by SHA-256 and never reads it.
     """
     dev = _device(backend)
-    t2 = _to(p2, dev)
+    t1, t2 = _to(p1, dev), _to(p2, dev)
     fp = fingerprint(t2, backend=backend) if with_fingerprint else None
-    a = _to(p1, dev).to(torch.float32)
-    b = t2.to(torch.float32)
-    q8, zeros, overflow = snapshot_fused_flat(a, b, eps)
+    q8, zeros, overflow = snapshot_fused_flat(t1.to(torch.float32),
+                                              t2.to(torch.float32), eps)
     if int(overflow) > 0:
-        q, nz = delta_quantize_flat(a, b, eps)
+        # as in the reference, the fallback quantizes the operands as given
+        q, nz = delta_quantize_flat(t1, t2, eps)
         return to_host(q), int(nz), fp, False
     return to_host(q8), int(zeros), fp, True
 

@@ -7,7 +7,11 @@ here equals the reference package's ``backend="ref"`` oracle bit for bit:
 * quantize divides by the f32 scale (a true division, as the CPU oracle
   and the numpy twins do), then adds 0.5 and floors;
 * dequantize multiplies and subtracts as two separately rounded f32
-  operations, never one fused multiply-add.
+  operations, never one fused multiply-add;
+* a bf16 result is rounded from f32 by :func:`to_bfloat16` (nearest, ties
+  to even, a NaN to the quiet NaN of its sign), bit for bit with
+  ``jnp.astype(bfloat16)``; torch's own ``.to(torch.bfloat16)`` rounds
+  numbers the same way but gives every NaN the bits ``0xFFFF`` on the CPU.
 
 The scale is a 0-dim f32 tensor on the operand's device, not a Python
 float: PyTorch's CUDA division by a host scalar multiplies by its
@@ -19,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.common import bf16
+
 _TORCH_DTYPES = {
     "float32": torch.float32, "float16": torch.float16,
     "bfloat16": torch.bfloat16, "float64": torch.float64,
@@ -28,10 +34,11 @@ _TORCH_DTYPES = {
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """A torch dtype from a torch dtype, a numpy dtype or its name."""
+    """A torch dtype from a torch dtype, a numpy dtype or its name (the
+    host's bf16 carrier, ``common/bf16.py``, is ``torch.bfloat16``)."""
     if isinstance(dtype, torch.dtype):
         return dtype
-    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    name = bf16.dtype_name(dtype)
     try:
         return _TORCH_DTYPES[name]
     except KeyError:
@@ -77,13 +84,31 @@ def tile_zero_counts(q: torch.Tensor, tile: int) -> torch.Tensor:
     return padded.reshape(-1, tile).sum(dim=1, dtype=torch.int32)
 
 
+def to_bfloat16(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to bfloat16 as ``jnp.astype`` and the CUDA kernels
+    round it: to nearest, ties to even; a NaN to ``0x7FC0`` or ``0xFFC0``."""
+    u = x.to(torch.float32).contiguous().view(torch.int32)
+    nan = (u & 0x7FFFFFFF) > 0x7F800000
+    num = torch.where(nan, torch.zeros_like(u), u)
+    r = ((num + (0x7FFF + ((num >> 16) & 1))) >> 16) & 0xFFFF
+    r = torch.where(nan, ((u >> 16) & 0x8000) | 0x7FC0, r)
+    return (r - ((r & 0x8000) << 1)).to(torch.int16).view(torch.bfloat16)
+
+
+def narrow(x: torch.Tensor, dtype) -> torch.Tensor:
+    """f32 ``x`` rounded once to ``dtype`` (bfloat16 by :func:`to_bfloat16`)."""
+    dtype = torch_dtype(dtype)
+    if dtype == torch.bfloat16:
+        return to_bfloat16(x)
+    return x.to(dtype)
+
+
 def dequant_apply_ref(p1: torch.Tensor, q: torch.Tensor, eps: float = 1e-4,
                       out_dtype=None) -> torch.Tensor:
     """Reconstruct the child: p2' = p1 - dequantize(q)."""
     step = q.to(torch.float32) * scale_tensor(eps, p1.device)
     out = p1.to(torch.float32) - step
-    return out.to(torch_dtype(out_dtype) if out_dtype is not None
-                  else p1.dtype)
+    return narrow(out, out_dtype if out_dtype is not None else p1.dtype)
 
 
 def snapshot_fused_ref(p1: torch.Tensor, p2: torch.Tensor, eps: float = 1e-4):

@@ -11,6 +11,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from repro_torch.common.bf16 import dtype_name
 from repro_torch.core.graphir import LayerGraph, LayerNode
 
 
@@ -34,5 +35,5 @@ def spec_graph(specs: Dict[str, Tuple[Tuple[int, ...], str]],
 def state_graph(flat: Dict[str, np.ndarray], model_type: str) -> LayerGraph:
     """Chain LayerGraph over state entries (checkpoints are sequenced by path)."""
     return spec_graph(
-        {k: (tuple(np.shape(v)), str(np.asarray(v).dtype))
+        {k: (tuple(np.shape(v)), dtype_name(np.asarray(v)))
          for k, v in flat.items()}, model_type)

@@ -11,9 +11,9 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Union
 
-import numpy as np
 import torch
 
+from repro_torch.common import bf16
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import decode_step, prefill
@@ -37,8 +37,9 @@ def make_serve_step(cfg: ModelConfig):
 
 
 def _tensor(x, device=None) -> torch.Tensor:
+    """``x`` as a tensor (arrays copied; the bf16 carrier as bfloat16)."""
     if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.array(x))
+        x = bf16.to_torch(x, copy=True)
     return x if device is None else x.to(device)
 
 

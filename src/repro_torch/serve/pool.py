@@ -295,15 +295,27 @@ class ModelPool:
                         value = self._apply_segment(value, open_qs, open_eps)
                     open_qs, open_eps = [q], hop.eps
             else:
+                # a non-f32 hop rounds to its dtype: applied on its own,
+                # as the checkout executor applies it
                 if open_qs:
                     value = self._apply_segment(value, open_qs, open_eps)
                     open_qs = []
-                value = host_dequant(value, q, hop.eps,
-                                     out_dtype=hop.dtype).reshape(hop.shape)
+                value = self._apply_hop(value, q, hop)
         if open_qs:
             value = self._apply_segment(value, open_qs, open_eps)
         return np.asarray(value).reshape(hops[-1].shape) if hops \
             else np.asarray(value)
+
+    def _apply_hop(self, value: np.ndarray, q: np.ndarray, hop) -> np.ndarray:
+        """One hop rounded to its own dtype (bf16, f16): the dequant kernel
+        on device backends, its numpy twin on ``"ref"``."""
+        if self.backend != "ref":
+            out = ops.dequant_apply(np.asarray(value), q, eps=hop.eps,
+                                    backend=self.backend,
+                                    out_dtype=hop.dtype)
+        else:
+            out = host_dequant(value, q, hop.eps, out_dtype=hop.dtype)
+        return np.asarray(out).reshape(hop.shape)
 
     def _apply_segment(self, value: np.ndarray, qs: List[np.ndarray],
                        eps: float) -> np.ndarray:

@@ -52,7 +52,6 @@ dequantizes chunks with the numpy twins on either backend.
 from __future__ import annotations
 
 import dataclasses
-import io
 import json
 import os
 import threading
@@ -62,6 +61,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.common import bf16
 from repro_torch.common.hashing import TensorHasher, bytes_hash, tensor_hash
 from repro_torch.dist.compression import ef_eps
 from repro_torch.core.artifact import LazyParams, ModelArtifact, ParamRef
@@ -69,7 +69,7 @@ from repro_torch.core.graphir import LayerGraph
 from repro_torch.kernels import ops
 from repro_torch.obs import REGISTRY, propagate, span
 from repro_torch.store import chunks as chunklib
-from repro_torch.store.cas import CAS, DEFAULT_PACK_THRESHOLD
+from repro_torch.store.cas import CAS, DEFAULT_PACK_THRESHOLD, npy_bytes
 from repro_torch.store.codecs import (bitpattern_apply, bitpattern_delta,
                                       get_codec, pick_codec)
 from repro_torch.store.delta import (CompressResult, ParamDelta, decode_q,
@@ -450,7 +450,8 @@ class ArtifactStore:
                     self.cas.put_tensor(value, key=thash)  # content-hash dedup
                     entries[key] = {"kind": "full", "tensor": thash,
                                     "shape": list(value.shape),
-                                    "dtype": str(value.dtype), "hash": thash}
+                                    "dtype": bf16.dtype_name(value),
+                                    "hash": thash}
 
             # delta entries always carry parent_ref; chunked entries only
             # when at least one chunk is stored relative to the parent
@@ -532,11 +533,12 @@ class ArtifactStore:
                 return None  # no saving for this tensor
             q32 = q if q.dtype == np.int32 else q.astype(np.int32)
             recon, state = self._commit_truth(parent_ref, pkey, p1, q32,
-                                              str(p2.dtype))
+                                              bf16.dtype_name(p2))
             recon = recon.reshape(p2.shape)
             delta = ParamDelta(
                 child_key=ckey, parent_key=pkey, blob=blob, codec=self.codec,
-                eps=self.eps, shape=tuple(p2.shape), dtype=str(p2.dtype),
+                eps=self.eps, shape=tuple(p2.shape),
+                dtype=bf16.dtype_name(p2),
                 raw_bytes=int(p2.nbytes), qdtype=str(q.dtype))
             with span("commit.hash", cat="store", key=ckey):
                 thash = tensor_hash(recon)
@@ -649,7 +651,7 @@ class ArtifactStore:
         thash = tensor_hash(value)
         self.cas.put_tensor(value, key=thash)
         return {"kind": "full", "tensor": thash, "shape": list(value.shape),
-                "dtype": str(value.dtype), "hash": thash}
+                "dtype": bf16.dtype_name(value), "hash": thash}
 
     @staticmethod
     def _copy_step_entry(pe: Dict[str, Any], parent_depth: int,
@@ -678,7 +680,7 @@ class ArtifactStore:
             return int(pe["nbytes"])
         shape = pe.get("shape", ())
         n = int(np.prod(shape, dtype=np.int64)) if shape else 1
-        return n * np.dtype(pe.get("dtype", "float32")).itemsize
+        return n * bf16.np_dtype(pe.get("dtype", "float32")).itemsize
 
     def commit_step(self, name: str,
                     flat: Dict[str, Optional[np.ndarray]],
@@ -761,7 +763,7 @@ class ArtifactStore:
                 if (self.delta_enabled and pe is not None
                         and pe["kind"] != "chunked"
                         and tuple(pe.get("shape", ())) == value.shape
-                        and pe.get("dtype") == str(value.dtype)):
+                        and pe.get("dtype") == bf16.dtype_name(value)):
                     pd = int(pe.get("d", parent_depth))
                     if pd + 1 > self.max_chain_depth:
                         pd = None  # per-leaf chain reset
@@ -779,7 +781,8 @@ class ArtifactStore:
                 if pv is None:
                     pv = self.materialize_param(parent_ref, key)
                 pv = np.asarray(pv)
-                if pv.shape != value.shape or pv.dtype != value.dtype:
+                if (pv.shape != value.shape
+                        or bf16.dtype_name(pv) != bf16.dtype_name(value)):
                     entries[key] = self._full_step_entry(
                         key, value, parent_ref, parent_manifest,
                         lossless=tier != "lossy")
@@ -838,7 +841,8 @@ class ArtifactStore:
                         "kind": "xdelta", "blob": self.cas.put_bytes(blob),
                         "parent_ref": parent_ref, "parent_key": key,
                         "codec": "xd", "shape": list(value.shape),
-                        "dtype": str(value.dtype), "qdtype": str(d.dtype),
+                        "dtype": bf16.dtype_name(value),
+                        "qdtype": str(d.dtype),
                         "hash": tensor_hash(value), "d": pd + 1}
                     truths[key] = value
                     counts["xdelta"] += 1
@@ -908,9 +912,9 @@ class ArtifactStore:
             value = params.get(key) if hasattr(params, "get") else None
             if isinstance(params, LazyParams):
                 shape, dtype = params.spec_of(key)
-                nb = (int(np.prod(shape, dtype=np.int64)
-                          * np.dtype(dtype).itemsize) if shape
-                      else np.dtype(dtype).itemsize)
+                item = bf16.np_dtype(dtype).itemsize
+                nb = (int(np.prod(shape, dtype=np.int64) * item) if shape
+                      else item)
                 if nb < self.chunk_threshold:
                     continue
                 value = params[key]  # materializes only >threshold params
@@ -942,7 +946,7 @@ class ArtifactStore:
             return None
         pe = parent_manifest["params"].get(key)
         if (pe is None or pe.get("kind") != "chunked"
-                or pe["dtype"] != str(np.dtype(source.dtype))
+                or pe["dtype"] != bf16.dtype_name(source.dtype)
                 or int(pe["nbytes"]) != int(source.nbytes)):
             return None
         return pe
@@ -972,7 +976,7 @@ class ArtifactStore:
         the quantized per-chunk delta path: the inherited grid still
         dedups unchanged chunks by content key, but changed chunks store
         raw bytes so the entry's truth IS the live value bit-for-bit."""
-        dtype = np.dtype(source.dtype)
+        dtype = bf16.np_dtype(source.dtype)
         shape = tuple(int(d) for d in source.shape)
         nbytes = int(source.nbytes)
         pe = self._chunk_parent_entry(key, parent_ref, parent_manifest,
@@ -989,7 +993,8 @@ class ArtifactStore:
                 max_size=self.chunk_max, mode=self.chunk_mode,
                 segments=self._shard_segments(key, shape, dtype.itemsize))
         spans = chunklib.spans_of(cuts)
-        delta_f32 = parent_chain is not None and dtype == np.float32
+        delta_f32 = (parent_chain is not None
+                     and bf16.dtype_name(dtype) == "float32")
         cod = self._codec_obj
         hasher = TensorHasher(shape, dtype)
         items: List[Optional[Dict[str, Any]]] = [None] * len(spans)
@@ -1067,7 +1072,8 @@ class ArtifactStore:
 
         entry: Dict[str, Any] = {"kind": "chunked",
                                  "hash": hasher.hexdigest(),
-                                 "shape": list(shape), "dtype": str(dtype),
+                                 "shape": list(shape),
+                                 "dtype": bf16.dtype_name(dtype),
                                  "nbytes": nbytes, "chunks": items}
         if pe is not None and any("b" in it or "p" in it for it in items):
             # at least one chunk is stored relative to the parent: record
@@ -1140,7 +1146,7 @@ class ArtifactStore:
         chain = self._chunk_chain(ref, key)
         spans = chunklib.spans_of(
             np.cumsum([int(it["n"]) for it in e["chunks"]]).tolist())
-        out = np.empty(tuple(e["shape"]), dtype=np.dtype(e["dtype"]))
+        out = np.empty(tuple(e["shape"]), dtype=bf16.np_dtype(e["dtype"]))
         flat = out.reshape(-1).view(np.uint8)
 
         def fill(idx: int) -> None:
@@ -1506,7 +1512,7 @@ class ArtifactStore:
         # element count of the stored delta, not of the tensor: dtypes
         # whose itemsize has no native unsigned width (complex, …) delta
         # over a byte-wise view, so the blob holds nbytes uint8 elements
-        n = n * np.dtype(e["dtype"]).itemsize // qdt.itemsize
+        n = n * bf16.np_dtype(e["dtype"]).itemsize // qdt.itemsize
         d = get_codec(e["codec"]).decode(
             self.cas.get_view(e["blob"]), n, dtype=str(qdt))
         value = bitpattern_apply(parent, d, e["dtype"], tuple(e["shape"]))
@@ -1803,12 +1809,10 @@ class ArtifactStore:
         for key in artifact.params:
             value = np.asarray(artifact.params[key])
             thash = tensor_hash(value)
-            buf = io.BytesIO()
-            np.save(buf, value, allow_pickle=False)
-            objects[thash] = buf.getvalue()
+            objects[thash] = npy_bytes(value)
             entries[key] = {"kind": "full", "tensor": thash,
                             "shape": list(value.shape),
-                            "dtype": str(value.dtype), "hash": thash}
+                            "dtype": bf16.dtype_name(value), "hash": thash}
         flat = {
             "name": name or manifest.get("name", "flat"),
             "model_type": manifest.get("model_type", "generic"),

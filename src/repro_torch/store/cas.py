@@ -8,7 +8,11 @@ Key schemes (DESIGN.md §3.2, §9.1, §9.3 — ``fsck`` verifies each):
 
 * ``m_<bytes_hash>`` — manifests, hash of the JSON payload;
 * ``<tensor_hash>`` — full tensors, hash over (shape, dtype, raw bytes),
-  NOT over the serialized npy stream (re-deriving needs a decode);
+  NOT over the serialized npy stream (re-deriving needs a decode). A
+  bfloat16 tensor (the host's bf16 carrier, ``common/bf16.py``) is stored
+  as ``np.save`` stores an ``ml_dtypes`` one, descr ``'<V2'``, and a ``V2``
+  payload reads back as the carrier: ``put_tensor`` refuses any other
+  2-byte void;
 * ``<bytes_hash>`` — delta blobs and raw objects, hash of the stored bytes;
 * ``t_<bytes_hash(test_hash NUL manifest_key)>`` — diagnostics ledger
   entries, keyed by the *lookup pair* (embedded in the payload) so results
@@ -80,6 +84,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.common import bf16
 from repro_torch.common.faults import kill_point
 from repro_torch.common.hashing import bytes_hash, tensor_hash
 
@@ -113,9 +118,31 @@ def _tensor_from_npy_view(view: memoryview) -> Optional[np.ndarray]:
     if offset + count * dtype.itemsize > len(view):
         return None
     arr = np.frombuffer(view, dtype=dtype, count=count, offset=offset)
-    arr = arr.reshape(shape)
+    arr = _bf16_of_void(arr.reshape(shape))
     arr.flags.writeable = False
     return arr
+
+
+def _is_void2(arr: np.ndarray) -> bool:
+    """Whether ``arr`` is an unstructured 2-byte void array."""
+    return (arr.dtype.kind == "V" and arr.dtype.itemsize == 2
+            and arr.dtype.names is None)
+
+
+def _bf16_of_void(arr: np.ndarray) -> np.ndarray:
+    """A ``V2`` array (the npy form of bfloat16, ``'<V2'`` or ``'|V2'``)
+    as the bf16 carrier; any other array as it is."""
+    return bf16.carry(arr) if _is_void2(arr) else arr
+
+
+def npy_bytes(arr: np.ndarray) -> bytes:
+    """``arr`` serialized as ``np.save`` writes it; the bf16 carrier as
+    ``np.save`` writes an ``ml_dtypes`` bfloat16 array (descr ``'<V2'``)."""
+    if bf16.is_bf16(arr):
+        return bf16.npy_header(arr.shape) + np.ascontiguousarray(arr).tobytes()
+    buf = io.BytesIO()
+    np.save(buf, arr, allow_pickle=False)
+    return buf.getvalue()
 
 
 def ledger_key(test_hash: str, manifest_key: str) -> str:
@@ -543,8 +570,17 @@ class CAS:
 
     # -- tensors ---------------------------------------------------------------
     def put_tensor(self, arr: np.ndarray, key: Optional[str] = None) -> str:
-        """Store a tensor (npy-serialized); key is its content hash."""
+        """Store a tensor (npy-serialized); key is its content hash.
+
+        A 2-byte void array other than an ``ml_dtypes`` bfloat16 one is
+        refused: a ``V2`` payload reads back as bfloat16, so it would come
+        back under another dtype than its key's."""
         arr = np.asarray(arr)
+        if _is_void2(arr) and arr.dtype.name != bf16.NAME:
+            raise TypeError(
+                f"cannot store a {arr.dtype.str} array: a 2-byte void payload "
+                f"reads back as bfloat16; store bf16 as the carrier "
+                f"(repro_torch.common.bf16.carry)")
         key = key or tensor_hash(arr)
         if self.has(key):  # avoid serializing at all on a dedup hit
             with self._lock:
@@ -553,9 +589,7 @@ class CAS:
                 self.stats["bytes_deduped"] += arr.nbytes
                 self.refcounts[key] = self.refcounts.get(key, 0) + 1
             return key
-        buf = io.BytesIO()
-        np.save(buf, arr, allow_pickle=False)
-        return self.put_bytes(buf.getvalue(), key=key)
+        return self.put_bytes(npy_bytes(arr), key=key)
 
     def get_tensor(self, key: str) -> np.ndarray:
         """Decode a stored npy payload, zero-copy where possible.
@@ -572,7 +606,8 @@ class CAS:
                 return arr
         except Exception:
             pass
-        return np.load(io.BytesIO(bytes(view)), allow_pickle=False)
+        return _bf16_of_void(np.load(io.BytesIO(bytes(view)),
+                                     allow_pickle=False))
 
     # -- refcounting / GC --------------------------------------------------------
     def incref(self, key: str) -> None:
@@ -855,7 +890,7 @@ class CAS:
         if bytes_hash(data) == key:
             return True
         try:
-            arr = np.load(io.BytesIO(data), allow_pickle=False)
+            arr = _bf16_of_void(np.load(io.BytesIO(data), allow_pickle=False))
             return tensor_hash(arr) == key
         except Exception:
             return False

@@ -56,6 +56,7 @@ from typing import Any, Dict, FrozenSet, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.common import bf16
 from repro_torch.common.hashing import tensor_hash
 from repro_torch.common.tree import flatten_with_path, unflatten
 from repro_torch.convert import to_numpy
@@ -98,7 +99,7 @@ def _host_copy(leaf) -> np.ndarray:
     """A host numpy array of ``leaf`` that shares no memory with it."""
     if isinstance(leaf, torch.Tensor):
         return to_numpy(leaf.detach().to("cpu", copy=True))
-    return np.array(leaf)
+    return to_numpy(np.array(leaf))
 
 
 def flatten_state(state) -> Dict[str, np.ndarray]:
@@ -112,11 +113,11 @@ def _place(value: np.ndarray, leaf) -> Any:
     device when ``leaf`` is a tensor, else a numpy array."""
     value = np.asarray(value)
     if isinstance(leaf, torch.Tensor):
-        # np.array copies: store values may be read-only CAS views
-        t = torch.from_numpy(np.array(value)).reshape(tuple(leaf.shape))
+        # a copy: store values may be read-only CAS views
+        t = bf16.to_torch(value, copy=True).reshape(tuple(leaf.shape))
         return t.to(device=leaf.device, dtype=leaf.dtype)
     dtype = getattr(leaf, "dtype", None)
-    if dtype is not None and str(value.dtype) != str(dtype):
+    if dtype is not None and bf16.dtype_name(value) != bf16.dtype_name(dtype):
         value = value.astype(dtype)
     shape = getattr(leaf, "shape", None)
     if shape is not None and tuple(value.shape) != tuple(shape):
@@ -250,7 +251,7 @@ class CheckpointManager:
         salted with shape+dtype."""
         a = np.ascontiguousarray(arr)
         view = a.view(np.uint8).reshape(-1)
-        salt = repr((a.shape, str(a.dtype))).encode()
+        salt = repr((a.shape, bf16.dtype_name(a))).encode()
         return (zlib.crc32(view, zlib.crc32(salt)) << 32) | zlib.adler32(view)
 
     def _snapshot(self, state) -> Tuple[Dict[str, Optional[np.ndarray]],
@@ -527,7 +528,7 @@ class CheckpointManager:
         specs: Dict[str, Tuple[Tuple[int, ...], str]] = {}
         for k, v in work.items():
             if v is not None:
-                specs[k] = (tuple(v.shape), str(v.dtype))
+                specs[k] = (tuple(v.shape), bf16.dtype_name(v))
             else:
                 pe = parent_manifest["params"][k]
                 specs[k] = (tuple(pe.get("shape", ())),

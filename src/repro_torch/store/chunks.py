@@ -32,6 +32,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.common.bf16 import np_dtype
+
 # Chunking defaults. Threshold chosen so ordinary layer tensors (a few MB)
 # keep the PR-4 whole-tensor fold path; only genuinely large params pay the
 # per-chunk manifest overhead.
@@ -197,7 +199,7 @@ class FileSource:
                  offset: int = 0) -> None:
         self.path = str(path)
         self.shape = tuple(int(d) for d in shape)
-        self.dtype = np.dtype(dtype)
+        self.dtype = np_dtype(dtype)
         self.nbytes = int(np.prod(self.shape, dtype=np.int64)
                           * self.dtype.itemsize) if self.shape else \
             self.dtype.itemsize
@@ -237,7 +239,7 @@ class FnSource:
                  shape: Sequence[int], dtype) -> None:
         self._fn = fn
         self.shape = tuple(int(d) for d in shape)
-        self.dtype = np.dtype(dtype)
+        self.dtype = np_dtype(dtype)
         self.nbytes = int(np.prod(self.shape, dtype=np.int64)
                           * self.dtype.itemsize) if self.shape else \
             self.dtype.itemsize

@@ -16,6 +16,8 @@ from typing import Dict
 
 import numpy as np
 
+from repro_torch.common.bf16 import np_dtype
+
 
 class Codec:
     """Codecs are dtype-aware: the quantized delta may arrive as int8 (the
@@ -179,8 +181,9 @@ def bitpattern_delta(child: np.ndarray, parent: np.ndarray) -> np.ndarray:
 
 def bitpattern_apply(parent: np.ndarray, delta: np.ndarray,
                      dtype: str, shape) -> np.ndarray:
-    """Inverse of :func:`bitpattern_delta`: reconstruct the child exactly."""
-    dt = np.dtype(dtype)
+    """Inverse of :func:`bitpattern_delta`: reconstruct the child exactly
+    (``bfloat16`` as the host's bf16 carrier)."""
+    dt = np_dtype(dtype)
     p = np.ascontiguousarray(parent)
     ud = delta.dtype
     pv = p.view(ud).ravel() if ud.itemsize == dt.itemsize else p.view(np.uint8).ravel()

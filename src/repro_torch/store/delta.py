@@ -17,6 +17,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.common import bf16
 from repro_torch.core.artifact import ModelArtifact
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import quant_scale, torch_dtype
@@ -28,7 +29,7 @@ from repro_torch.store.codecs import get_codec
 # ---------------------------------------------------------------------------
 
 def _signature(arr: np.ndarray) -> Tuple:
-    return (tuple(np.shape(arr)), str(np.asarray(arr).dtype))
+    return (tuple(np.shape(arr)), bf16.dtype_name(np.asarray(arr)))
 
 
 def _signature_of(artifact: ModelArtifact, key: str) -> Tuple:
@@ -37,7 +38,7 @@ def _signature_of(artifact: ModelArtifact, key: str) -> Tuple:
     spec_of = getattr(params, "spec_of", None)
     if spec_of is not None:
         shape, dtype = spec_of(key)
-        return (tuple(shape), str(dtype))
+        return (tuple(shape), bf16.dtype_name(dtype))
     return _signature(params[key])
 
 
@@ -172,7 +173,7 @@ def delta_compression(m2: ModelArtifact, m1: ModelArtifact,
         blob = cod.encode(q)
         delta = ParamDelta(child_key=ckey, parent_key=pkey, blob=blob,
                            codec=codec, eps=eps, shape=tuple(p2.shape),
-                           dtype=str(p2.dtype), raw_bytes=int(p2.nbytes),
+                           dtype=bf16.dtype_name(p2), raw_bytes=int(p2.nbytes),
                            qdtype=str(q.dtype))
         if per_param and len(blob) >= p2.nbytes:
             continue  # no saving for this tensor
@@ -214,9 +215,10 @@ def host_snapshot(p1: np.ndarray, p2: np.ndarray, eps: float
     torch version and the CUDA kernel (all compute
     ``floor(f32(p1-p2)/f32(scale) + 0.5)`` with correctly-rounded f32 ops)
     but with zero dispatch overhead. The commit pipeline uses it on the
-    ``"ref"`` backend, and the chunk engine always does."""
+    ``"ref"`` backend, and the chunk engine always does. Operands of any
+    float dtype (the bf16 carrier included) are widened to f32 exactly."""
     scale = np.float32(quant_scale(eps))
-    d = np.asarray(p1, dtype=np.float32) - np.asarray(p2, dtype=np.float32)
+    d = bf16.widen(p1) - bf16.widen(p2)
     q32 = np.floor(d / scale + np.float32(0.5)).astype(np.int32)
     nz = int((q32 == 0).sum())
     q8 = np.clip(q32, -127, 127)
@@ -232,15 +234,18 @@ def host_dequant(parent_value: np.ndarray, q: np.ndarray, eps: float,
     Bit-identical to ``ops.dequant_apply`` on either backend — an f32
     multiply and an f32 subtract, each correctly rounded, per element —
     but with zero dispatch overhead, which is what the checkout/commit hot
-    loops need on the ``"ref"`` backend. Non-f32 ``out_dtype`` casts go
-    through torch, so they round as the device path does; bf16 has no
-    numpy dtype here and raises ``NotImplementedError``."""
+    loops need on the ``"ref"`` backend. The parent may be the bf16
+    carrier (widened exactly). A bf16 ``out_dtype`` rounds to the carrier
+    in numpy (``bf16.narrow``, as the kernel rounds); other non-f32
+    ``out_dtype`` casts go through torch, so they round as the device path
+    does."""
     scale = np.float32(quant_scale(eps))
-    out = (np.asarray(parent_value, dtype=np.float32)
-           - np.asarray(q, dtype=np.float32) * scale)
+    out = bf16.widen(parent_value) - np.asarray(q, dtype=np.float32) * scale
     dt = torch_dtype(out_dtype if out_dtype is not None else "float32")
     if dt == torch.float32:
         return out
+    if dt == torch.bfloat16:
+        return bf16.narrow(out)
     return ops.to_host(torch.from_numpy(out).to(dt))
 
 
@@ -271,4 +276,4 @@ def decompress_param(parent_value: np.ndarray, delta: ParamDelta,
                             out_dtype=delta.dtype).reshape(delta.shape)
     out = ops.dequant_apply(np.asarray(parent_value), q, eps=delta.eps,
                             backend=backend, out_dtype=delta.dtype)
-    return np.asarray(out).reshape(delta.shape).astype(delta.dtype)
+    return np.asarray(out).reshape(delta.shape)

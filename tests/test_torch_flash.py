@@ -41,8 +41,12 @@ SPECS = [
     dict(B=1, Hq=4, Hkv=2, S=48, hd=16, causal=True, prefix_len=16),
     dict(B=2, Hq=2, Hkv=2, S=64, hd=16, causal=False),
 ]
+# f16 (not in the reference test): f16 keeps three more mantissa bits than
+# bf16, so a third of bf16's tolerance still leaves room for the output's
+# rounding (2^-11 relative) and the kernel's f16 P
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2),
+          "float16": (jnp.float16, torch.float16, 1e-2)}
 
 
 def _inputs(spec, seed=0):
@@ -186,8 +190,11 @@ def test_roofline_hand_counts():
         pytest.approx(3 * ops / 495e12 * 1e3), "operations")
     # a window halves nothing here but the visible pairs
     assert fa.roofline(*serve, torch.float32, window=64)[0] < ms
+    # f16 runs on the same tensor cores at the same rate as bf16
+    assert fa.roofline(*serve, torch.float16) == fa.roofline(
+        *serve, torch.bfloat16)
     with pytest.raises(TypeError):
-        fa.roofline(*serve, torch.float16)
+        fa.roofline(*serve, torch.float64)
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -264,6 +271,32 @@ def test_bf16_plan_meets_bf16_tolerance_with_gqa():
     out = ((p.to(torch.bfloat16).float() @ vf) / p.sum(-1, keepdim=True))
     np.testing.assert_allclose(_f32(out.to(torch.bfloat16)), _f32(oracle),
                                atol=3e-2)
+
+
+def test_f16_plan_meets_f16_tolerance_with_gqa():
+    """The f16 instantiation's arithmetic: the bf16 plan with f16 operands
+    and P rounded to f16 for P @ V, within f16's 1e-2 of the oracle on the
+    same f16 inputs (the reference's kernel widens f16 to f32)."""
+    q, k, v = _inputs(dict(B=1, Hq=4, Hkv=2, S=512, hd=128), seed=5)
+    jq, jk, jv = (jnp.asarray(a, jnp.float16) for a in (q, k, v))
+    oracle = ref_oracle(jq, jk, jv, causal=True)
+    kernel = ref_flash(jq, jk, jv, qc=128, kc=128, interpret=True,
+                       causal=True)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.float16) for a in (q, k, v))
+    kf = tk.repeat_interleave(2, dim=1).float()
+    vf = tv.repeat_interleave(2, dim=1).float()
+    s = (tq.float() @ kf.transpose(-1, -2)) * 128 ** -0.5
+    ok = torch.ones(512, 512, dtype=torch.bool).tril()
+    s = torch.where(ok, s, torch.full_like(s, fa.NEG_INF))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = ((p.to(torch.float16).float() @ vf) / p.sum(-1, keepdim=True))
+    for want in (oracle, kernel):
+        np.testing.assert_allclose(_f32(out.to(torch.float16)), _f32(want),
+                                   atol=1e-2)
+    # the wrapper's plain version, which the CPU runs
+    got = flash_attention(tq, tk, tv)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(_f32(got), _f32(kernel), atol=1e-2)
 
 
 def test_kernel_operands_pad_head_dim_and_align():

@@ -24,6 +24,7 @@ from repro.kernels.chain_apply import chain_apply_ref as jchain_apply_ref
 from repro.kernels.fingerprint import fingerprint_2d
 from repro.kernels.snapshot_fused import snapshot_fused_ref as jsnapshot_ref
 
+from repro_torch.common import bf16
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.chain_apply import chain_apply_flat
 from repro_torch.kernels.delta_quantize import (delta_quantize_flat,
@@ -242,8 +243,16 @@ def test_ops_return_numpy_in_requested_dtype():
     np.testing.assert_array_equal(
         out, np.asarray(ref_ops.dequant_apply(p1, q, backend="ref",
                                               out_dtype="float16")))
-    with pytest.raises(NotImplementedError, match="bf16 storage path"):
-        ops.dequant_apply(p1, q, backend="ref", out_dtype="bfloat16")
+    # bfloat16 computes too: the host carrier (uint16 bits named bfloat16)
+    # with the reference's bits
+    out = ops.dequant_apply(ro, q, backend="ref", out_dtype="bfloat16")
+    assert isinstance(out, np.ndarray) and out.dtype == np.uint16
+    assert bf16.is_bf16(out) and bf16.dtype_name(out) == "bfloat16"
+    np.testing.assert_array_equal(
+        out.view(np.uint16),
+        np.asarray(ref_ops.dequant_apply(p1, q, backend="ref",
+                                         out_dtype=jnp.bfloat16))
+        .view(np.uint16))
 
 
 @pytest.mark.parametrize("wrapper, args", [
@@ -398,18 +407,21 @@ def test_delta_quantize_flat_tile_counts_on_cpu():
 
 
 def test_require_dtype_takes_f16_and_still_refuses_bf16():
-    floats = (torch.float32, torch.float16)
+    """bf16 no longer waits for a ROADMAP item: the storage kernels take it
+    (the name is kept from when they refused it). A float type a kernel
+    does not take still raises NotImplementedError naming what it takes."""
+    floats = (torch.float32, torch.float16, torch.bfloat16)
     for dtype in floats:
         build.require_dtype(dtype, floats, "p1")
-    with pytest.raises(NotImplementedError, match=build.BF16_ITEM) as err:
-        build.require_dtype(torch.bfloat16, floats, "p1")
+    assert not hasattr(build, "BF16_ITEM")
+    with pytest.raises(NotImplementedError) as err:
+        build.require_dtype(torch.float64, floats, "p1")
     assert "other float types" not in str(err.value)
-    assert "float32 and float16" in str(err.value)
+    assert "float32 and float16 and bfloat16" in str(err.value)
     with pytest.raises(TypeError, match="expected int32"):
         build.require_dtype(torch.int64, (torch.int32,), "q")
-    with pytest.raises(NotImplementedError) as err:
-        build.require_dtype(torch.float16, (torch.float32,), "base")
-    assert build.BF16_ITEM not in str(err.value)
+    with pytest.raises(NotImplementedError, match="takes float32"):
+        build.require_dtype(torch.bfloat16, (torch.float32,), "base")
 
 
 @pytest.mark.parametrize("out_dtype", [None, "float32", "float16"])

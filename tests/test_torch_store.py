@@ -10,6 +10,7 @@ reads, and the store's refusal to fall back to the CPU by default.
 import dataclasses
 import os
 
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -188,8 +189,13 @@ def test_numpy_twins_match_reference_and_plain_versions(eps):
     assert half.dtype == np.float16
     np.testing.assert_array_equal(
         half, ref_host_dequant(p1, q32, eps, out_dtype="float16"))
-    with pytest.raises(NotImplementedError, match="bf16 storage path"):
-        host_dequant(p1, q32, eps, out_dtype="bfloat16")
+    # bfloat16 computes: the host carrier, with the reference's bits
+    brain = host_dequant(p1, q32, eps, out_dtype="bfloat16")
+    assert brain.dtype == np.uint16 and tensor_hash(brain) == tensor_hash(
+        ref_host_dequant(p1, q32, eps, out_dtype=ml_dtypes.bfloat16))
+    np.testing.assert_array_equal(
+        brain, ref_host_dequant(p1, q32, eps, out_dtype=ml_dtypes.bfloat16)
+        .view(np.uint16))
 
 
 @pytest.mark.parametrize("n_shards", [1, 2, 4, 7])
@@ -234,8 +240,14 @@ def test_convert_carries_reference_weights():
     torch_flat = {k: torch.from_numpy(v.copy()) for k, v in flat.items()}
     assert convert.to_artifact(torch_flat, cfg.name).param_hashes() == \
         ref_art.param_hashes()
-    with pytest.raises(NotImplementedError, match="bf16 storage path"):
-        convert.to_artifact({"w": torch.zeros(3, dtype=torch.bfloat16)}, "m")
+    # bfloat16 weights carry across too (as uint16 bits named bfloat16)
+    w = torch.linspace(-2, 2, 7).to(torch.bfloat16)
+    brain = convert.to_artifact({"w": w}, "m")
+    ref_brain = RefArtifact(state_graph({"w": w.float().numpy().astype(
+        ml_dtypes.bfloat16)}, "m"), {"w": w.float().numpy().astype(
+            ml_dtypes.bfloat16)}, model_type="m")
+    assert brain.param_hashes() == ref_brain.param_hashes()
+    assert brain.graph.to_json() == ref_brain.graph.to_json()
 
 
 def test_store_default_backend_is_the_card(tmp_path):
