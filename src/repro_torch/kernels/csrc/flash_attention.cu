@@ -12,20 +12,25 @@
 // causal that is 3.23 GFLOP over 25.2 MB (bf16) or 50.3 MB (f32): bf16 is
 // bound by bytes (0.0075 ms at 3.35 TB/s; its operations take 0.0033 ms at
 // 989 TFLOP/s), f32 by operations (three TF32 passes at 495 TFLOP/s:
-// 0.0196 ms). flash_attention.py::roofline computes both.
+// 0.0196 ms). At paligemma-3b's prefill (8, 8 q / 1 kv, 768, 256) causal
+// with a 256-token prefix, 327,936 visible pairs per head make 21.5 GFLOP
+// over 56.6 MB (bf16): bound by operations, 0.0217 ms (bytes 0.0169 ms).
+// flash_attention.py::roofline computes both.
 //
 // Design. One block per (batch, head, query tile); the heaviest causal
 // tiles are launched first. Its warps split into one producer warp and
 // consumer warpgroups of 4 warps x 16 query rows: one (64 rows) for bf16
-// and for f32 at hd 128, two (128 rows, sharing each k/v tile) for f32 at
-// hd 64. A warpgroup skips the key tiles none of its rows can see.
-// - The producer's lane 0 loads the q tiles once and then each 64-key tile
-//   of k and v some row of the block can see by TMA (cp.async.bulk.tensor
-//   over a 3-D tensor map (hd, S, B * H), so rows past the sequence and
-//   columns past hd read as zeros from inside the head) into a ring of
-//   kStages stages, with a full and an empty mbarrier per stage (two
-//   stages; one for f32 at hd 128, whose tiles fill shared memory). The
-//   next tile loads while the consumers run the current one's products.
+// and for f32 at hd 128 and 256, two (128 rows, sharing each k/v tile) for
+// f32 at hd 64. A warpgroup skips the key tiles none of its rows can see.
+// Head dims are instantiated at 64, 128 and 256.
+// - The producer's lane 0 loads the q tiles once and then each key tile
+//   (64 keys; 32 for f32 at hd 256) of k and v some row of the block can
+//   see by TMA (cp.async.bulk.tensor over a 3-D tensor map (hd, S, B * H),
+//   so rows past the sequence and columns past hd read as zeros from
+//   inside the head) into a ring of kStages stages, with a full and an
+//   empty mbarrier per stage (two stages; one for f32 above hd 64, whose
+//   tiles fill shared memory). The next tile loads while the consumers run
+//   the current one's products.
 // - Tiles are 128-byte rows, 128-byte swizzled, as wgmma's descriptors
 //   read them; a head dim over 128 bytes is stored as column slabs.
 // - bf16 and f16 (one path, T the 16-bit type): S = Q K^T is wgmma
@@ -42,7 +47,10 @@
 //   The consumers split q once, and each k tile in place (small parts
 //   beside it), as it arrives. wgmma takes TF32 operands only K-major,
 //   which V is not as stored, so the same pass writes V^T (big and small)
-//   into tiles of its own and the ring stage is released after Q K^T. P
+//   into tiles of its own and the ring stage is released after Q K^T. At
+//   hd 256 the q tiles alone take 128 KB, so V^T is written after Q K^T
+//   into the stage's k tile and k's small tile, and the stage is released
+//   after P V (224 KB in all). P
 //   stays in registers as the A operand: the thread holding keys (2c,
 //   2c + 1) of an 8-key group feeds them as k indices (c, c + 4), and
 //   V^T's columns are written in that order.
@@ -52,8 +60,12 @@
 //
 // Masks, as the oracle: key k is visible from query q when
 // (!causal || k <= q || k < prefix_len) && (window == 0 || q - k < window);
-// a masked score is -1e30 (NEG_INF), a key past the end of the sequence is
-// -inf (weight exactly 0). A key tile is skipped when it is masked for
+// a masked score, like a key past the end of the sequence, is -inf (weight
+// exactly 0). Every query row sees some key, so this equals the oracle's
+// -1e30 (NEG_INF). A finite -1e30 went wrong in a row whose first tile is
+// wholly outside a sliding window: the FFMA below turns -1e30 * scale - m
+// into the rounding residue of that product (about 1e22) instead of 0, and
+// ex2 of it into inf. A key tile is skipped when it is masked for
 // every query of the warpgroup's rows: wholly in the causal future and
 // wholly past prefix_len, or wholly outside the window. Masks are applied
 // only on tiles where some pair is masked; scores are scaled into base-2
@@ -69,7 +81,6 @@
 #include "common.cuh"
 
 constexpr int kBM = 64;                   // query rows per consumer warpgroup
-constexpr int kBN = 64;                   // keys per tile
 constexpr int kRowBytes = 128;            // a swizzled tile row
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -266,6 +277,20 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32], uint64_t 
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d (+)= A @ B^T for a 64 x 8 TF32 A and a 32 x 8 TF32 B, both K-major in
+// shared memory; d is the m64n32 f32 accumulator (f32 at hd 256).
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float (&d)[16], uint64_t desc_a,
+                                                      uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d += A @ B for a 64 x 8 TF32 A in registers and a 64 x 8 TF32 B^T in
 // shared memory, K-major; d is m64n64 f32.
 __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t* a,
@@ -326,21 +351,21 @@ __device__ __forceinline__ void split_tile(float* tile, float* small) {
   }
 }
 
-// V (kBN keys x HD) as TMA wrote it into V^T (HD rows x kBN keys, K-major,
+// V (BN keys x HD) as TMA wrote it into V^T (HD rows x BN keys, K-major,
 // as wgmma's B operand of P V must be for TF32), split into big and small.
 // Keys are permuted inside each group of 8: key 2c + e sits at k index
 // c + 4e, the order in which a thread's P registers (keys 2c, 2c + 1 of
 // the wgmma accumulator) enter the A fragment (k indices c, c + 4).
-template <int HD, int THREADS>
+template <int HD, int BN, int THREADS>
 __device__ __forceinline__ void transpose_split_v(const float* v, float* vt_big, float* vt_small) {
-  for (int u = threadIdx.x; u < HD * kBN / 4; u += THREADS) {
+  for (int u = threadIdx.x; u < HD * BN / 4; u += THREADS) {
     const int n = u % HD, a = u / HD;   // row n of V^T, its 16-byte chunk a
     const int key0 = 8 * (a >> 1) + (a & 1);
     float4 big, small;
-    split_tf32(v[swz_f32<kBN>(key0, n)], big.x, small.x);
-    split_tf32(v[swz_f32<kBN>(key0 + 2, n)], big.y, small.y);
-    split_tf32(v[swz_f32<kBN>(key0 + 4, n)], big.z, small.z);
-    split_tf32(v[swz_f32<kBN>(key0 + 6, n)], big.w, small.w);
+    split_tf32(v[swz_f32<BN>(key0, n)], big.x, small.x);
+    split_tf32(v[swz_f32<BN>(key0 + 2, n)], big.y, small.y);
+    split_tf32(v[swz_f32<BN>(key0 + 4, n)], big.z, small.z);
+    split_tf32(v[swz_f32<BN>(key0 + 6, n)], big.w, small.w);
     const int off = swz_f32<HD>(n, 4 * a);
     *reinterpret_cast<float4*>(vt_big + off) = big;
     *reinterpret_cast<float4*>(vt_small + off) = small;
@@ -368,25 +393,26 @@ struct Problem {
   float scale_log2;   // hd^-0.5 * log2(e): scores in base-2 units
 };
 
-// Key tiles [begin, end) some query of rows [q_start, q_start + rows) can
-// see; none when those rows lie past Sq.
-__device__ __forceinline__ void key_tiles(const Problem& P, int q_start, int rows, int& begin,
-                                          int& end) {
+// Key tiles of bn keys [begin, end) some query of rows [q_start, q_start +
+// rows) can see; none when those rows lie past Sq.
+__device__ __forceinline__ void key_tiles(const Problem& P, int q_start, int rows, int bn,
+                                          int& begin, int& end) {
   if (q_start >= P.Sq) {
     begin = end = 0;
     return;
   }
   const int q_last = min(q_start + rows - 1, P.Sq - 1);
-  const int n_k = (P.Skv + kBN - 1) / kBN;
+  const int n_k = (P.Skv + bn - 1) / bn;
   end = n_k;
-  if (P.causal) end = min(n_k, max(q_last, P.prefix_len - 1) / kBN + 1);
-  begin = P.window > 0 ? max(0, q_start - P.window + 1) / kBN : 0;
+  if (P.causal) end = min(n_k, max(q_last, P.prefix_len - 1) / bn + 1);
+  begin = P.window > 0 ? max(0, q_start - P.window + 1) / bn : 0;
 }
 
 // Whether any (query, key) pair of a warpgroup's 64 rows from q_start and
-// the key tile from k_start is masked or past Skv.
-__device__ __forceinline__ bool tile_needs_mask(const Problem& P, int q_start, int k_start) {
-  const int k_end = k_start + kBN;
+// the key tile of bn keys from k_start is masked or past Skv.
+__device__ __forceinline__ bool tile_needs_mask(const Problem& P, int q_start, int k_start,
+                                                int bn) {
+  const int k_end = k_start + bn;
   if (k_end > P.Skv) return true;
   if (P.causal && k_end - 1 > q_start && k_end > P.prefix_len) return true;
   return P.window > 0 && q_start + kBM - 1 - k_start >= P.window;
@@ -398,30 +424,31 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// One online-softmax step on a warp's 16 x kBN fragment of raw scores s
+// One online-softmax step on a warp's 16 x BN fragment of raw scores s
 // (s[4j + 2h + e] is row row0 + 8h, key k_start + 8j + 2c + e): mask, fold
 // the tile's row max (in base-2 units, hd^-0.5 * log2(e) applied in f32
 // after the product) into m, the rescale factors into alpha, s into
 // exp2(s * scale_log2 - m) with one FFMA and one ex2 per score, and this
 // thread's share of the row sums into l.
-__device__ __forceinline__ void softmax_step(const Problem& P, float (&s)[kBN / 2], float (&m)[2],
+template <int BN>
+__device__ __forceinline__ void softmax_step(const Problem& P, float (&s)[BN / 2], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2], int row0,
                                              int k_start, int c, bool masked) {
   if (masked) {
 #pragma unroll
-    for (int i = 0; i < kBN / 2; ++i) {
+    for (int i = 0; i < BN / 2; ++i) {
       const int qpos = row0 + 8 * ((i >> 1) & 1);
       const int kpos = k_start + 8 * (i >> 2) + 2 * c + (i & 1);
       bool ok = !P.causal || kpos <= qpos || kpos < P.prefix_len;
       if (P.window > 0) ok = ok && (qpos - kpos < P.window);
-      s[i] = kpos >= P.Skv ? -INFINITY : (ok ? s[i] : kNegInf);
+      s[i] = ok && kpos < P.Skv ? s[i] : -INFINITY;
     }
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+    for (int j = 0; j < BN / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     const float m_new = fmaxf(m[h], mx * P.scale_log2);
@@ -429,7 +456,7 @@ __device__ __forceinline__ void softmax_step(const Problem& P, float (&s)[kBN / 
     m[h] = m_new;
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
+    for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int i = 4 * j + 2 * h + e;
@@ -492,17 +519,22 @@ __device__ __forceinline__ void write_rows(const Problem& P, T* oh, float (&o)[N
   }
 }
 
-// A block's shape and shared memory, in 1024-byte aligned tiles of 64
-// rows x HD (128-byte swizzled column slabs): each consumer warpgroup's q
-// tile; a ring of kStages k tiles and kStages v tiles; for f32 also each q
-// tile's small part, k's small part and V^T's big and small parts; then
-// the barriers. f32 at hd 64 has two consumer warpgroups (128 rows), which
-// share each k/v tile and the work of splitting it; f32 at hd 128 fits one
-// warpgroup and one stage. bf16 keeps one warpgroup: two made it slower
-// at the serving shape (half as many blocks, the same warps per SM).
+// A block's shape and shared memory, in 1024-byte aligned tiles of
+// 128-byte swizzled column slabs: each consumer warpgroup's q tile (64
+// rows x HD); a ring of kStages k tiles and kStages v tiles (kBN rows x
+// HD); for f32 also each q tile's small part, k's small part and V^T's
+// big and small parts (HD rows x kBN); then the barriers. f32 at hd 64
+// has two consumer warpgroups (128 rows), which share each k/v tile and
+// the work of splitting it; f32 at hd 128 fits one warpgroup and one
+// stage; f32 at hd 256 takes 32-key tiles and writes V^T over the stage's
+// k tile and k's small part (kReuse). bf16 keeps one warpgroup: two made
+// it slower at the serving shape (half as many blocks, the same warps per
+// SM).
 template <typename T, int HD>
 struct Smem {
   static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr bool kReuse = kF32 && HD > 128;
+  static constexpr int kBN = kReuse ? 32 : 64;                // keys per tile
   static constexpr int kGroups = kF32 && HD <= 64 ? 2 : 1;   // consumer warpgroups
   static constexpr int kStages = kF32 && HD > 64 ? 1 : 2;
   static constexpr int kConsumers = 128 * kGroups;
@@ -510,37 +542,42 @@ struct Smem {
   static constexpr int kRows = kBM * kGroups;                // query rows per block
   static constexpr int kSlabs = HD * (int)sizeof(T) / kRowBytes;
   static constexpr int kSlabElems = kRowBytes / (int)sizeof(T);
-  static constexpr int kTileBytes = kBM * HD * (int)sizeof(T);   // kBM == kBN
-  static constexpr int kRing = kGroups;                          // first ring tile
-  static constexpr int kExtra = kGroups + 2 * kStages;           // first f32 tile
-  static constexpr int kTiles = kF32 ? kExtra + kGroups + 3 : kExtra;
-  static constexpr int kBytes = kTiles * kTileBytes + (1 + 2 * kStages) * 8;
+  static constexpr int kQBytes = kBM * HD * (int)sizeof(T);
+  static constexpr int kKVBytes = kBN * HD * (int)sizeof(T);   // also V^T's
+  static constexpr int kRing = kGroups * kQBytes;                // first ring tile
+  static constexpr int kExtra = kRing + 2 * kStages * kKVBytes;  // first f32 tile
+  static constexpr int kKSmall = kExtra + kGroups * kQBytes;
+  static constexpr int kEnd = kF32 ? kKSmall + (kReuse ? 1 : 3) * kKVBytes : kExtra;
+  static constexpr int kBytes = kEnd + (1 + 2 * kStages) * 8;
+  static_assert(!kReuse || kStages == 1, "V^T over the k tile needs one stage");
+  static_assert(kBytes <= 232448, "more shared memory than a block can have");
   uint8_t* base;
-  __device__ uint8_t* tile(int i) const { return base + i * kTileBytes; }
-  __device__ uint8_t* q(int w) const { return tile(w); }
-  __device__ uint8_t* k(int st) const { return tile(kRing + st); }
-  __device__ uint8_t* v(int st) const { return tile(kRing + kStages + st); }
-  __device__ float* f32_tile(int i) const { return reinterpret_cast<float*>(tile(i)); }
-  __device__ float* q_small(int w) const { return f32_tile(kExtra + w); }
-  __device__ float* k_small() const { return f32_tile(kExtra + kGroups); }
-  __device__ float* vt_big() const { return f32_tile(kExtra + kGroups + 1); }
-  __device__ float* vt_small() const { return f32_tile(kExtra + kGroups + 2); }
-  __device__ uint64_t* q_full() const { return reinterpret_cast<uint64_t*>(tile(kTiles)); }
+  __device__ uint8_t* q(int w) const { return base + w * kQBytes; }
+  __device__ uint8_t* k(int st) const { return base + kRing + st * kKVBytes; }
+  __device__ uint8_t* v(int st) const { return base + kRing + (kStages + st) * kKVBytes; }
+  __device__ float* f32_at(int offset) const { return reinterpret_cast<float*>(base + offset); }
+  __device__ float* q_small(int w) const { return f32_at(kExtra + w * kQBytes); }
+  __device__ float* k_small() const { return f32_at(kKSmall); }
+  __device__ float* vt_big() const {
+    return kReuse ? reinterpret_cast<float*>(k(0)) : f32_at(kKSmall + kKVBytes);
+  }
+  __device__ float* vt_small() const { return kReuse ? k_small() : f32_at(kKSmall + 2 * kKVBytes); }
+  __device__ uint64_t* q_full() const { return reinterpret_cast<uint64_t*>(base + kEnd); }
   __device__ uint64_t* full(int st) const { return q_full() + 1 + st; }
   __device__ uint64_t* empty(int st) const { return q_full() + 1 + kStages + st; }
 };
 
 // The producer warp's lane 0: the q tiles, then every k/v tile some row of
 // the block can see into the ring, each stage reused once every consumer
-// warp released it (bf16: after P V; f32: after Q K^T, once V is copied
-// out as V^T).
+// warp released it (bf16, and f32 at hd 256: after P V; f32 below: after
+// Q K^T, once V is copied out as V^T).
 template <typename T, int HD>
 __device__ __forceinline__ void produce(const Smem<T, HD>& sm, const CUtensorMap* qmap,
                                         const CUtensorMap* kmap, const CUtensorMap* vmap,
                                         int q_start, int q_head, int kv_head, int kt_begin,
                                         int kt_end) {
   using S = Smem<T, HD>;
-  mbar_expect_tx(sm.q_full(), S::kGroups * S::kTileBytes);
+  mbar_expect_tx(sm.q_full(), S::kGroups * S::kQBytes);
 #pragma unroll
   for (int w = 0; w < S::kGroups; ++w) {
 #pragma unroll
@@ -551,14 +588,52 @@ __device__ __forceinline__ void produce(const Smem<T, HD>& sm, const CUtensorMap
   for (int i = 0, kt = kt_begin; kt < kt_end; ++i, ++kt) {
     const int st = i % S::kStages;
     if (i >= S::kStages) mbar_wait(sm.empty(st), (i / S::kStages - 1) & 1);
-    mbar_expect_tx(sm.full(st), 2 * S::kTileBytes);
+    mbar_expect_tx(sm.full(st), 2 * S::kKVBytes);
 #pragma unroll
     for (int s = 0; s < S::kSlabs; ++s) {
-      tma_load(sm.k(st) + s * kBN * kRowBytes, kmap, sm.full(st), s * S::kSlabElems, kt * kBN,
-               kv_head);
-      tma_load(sm.v(st) + s * kBN * kRowBytes, vmap, sm.full(st), s * S::kSlabElems, kt * kBN,
-               kv_head);
+      tma_load(sm.k(st) + s * S::kBN * kRowBytes, kmap, sm.full(st), s * S::kSlabElems,
+               kt * S::kBN, kv_head);
+      tma_load(sm.v(st) + s * S::kBN * kRowBytes, vmap, sm.full(st), s * S::kSlabElems,
+               kt * S::kBN, kv_head);
     }
+  }
+}
+
+// o (m64 x HD) += A @ B for a 64 x 16 16-bit A in registers and V's 16
+// rows of the stage (MN-major), in n128 halves above hd 128.
+template <typename T, int HD>
+__device__ __forceinline__ void pv_16bit(float (&o)[HD / 2], const uint32_t* a,
+                                         const uint8_t* v_rows) {
+  const uint64_t dv = smem_desc(v_rows, 64 * kRowBytes, 1024);
+  if constexpr (HD == 64) {
+    wgmma_m64n64k16_rs<T>(o, a, dv);
+  } else if constexpr (HD == 128) {
+    wgmma_m64n128k16_rs<T>(o, a, dv);
+  } else {
+    static_assert(HD == 256, "head dims 64, 128 and 256");
+    // columns 128..255 start at the third 64-column slab
+    wgmma_m64n128k16_rs<T>(*reinterpret_cast<float(*)[64]>(o), a, dv);
+    wgmma_m64n128k16_rs<T>(*reinterpret_cast<float(*)[64]>(o + 64), a,
+                           smem_desc(v_rows + 2 * 64 * kRowBytes, 64 * kRowBytes, 1024));
+  }
+}
+
+// o (m64 x HD) += A @ B for a 64 x 8 TF32 A in registers and 8 keys of
+// V^T (HD rows, K-major), in n128 halves above hd 128.
+template <int HD>
+__device__ __forceinline__ void pv_tf32(float (&o)[HD / 2], const uint32_t* a,
+                                        const uint8_t* vt_keys) {
+  const uint64_t dv = smem_desc(vt_keys, 16, 1024);
+  if constexpr (HD == 64) {
+    wgmma_m64n64k8_tf32_rs(o, a, dv);
+  } else if constexpr (HD == 128) {
+    wgmma_m64n128k8_tf32_rs(o, a, dv);
+  } else {
+    static_assert(HD == 256, "head dims 64, 128 and 256");
+    // rows 128..255 of V^T are 128 rows of 128 bytes further on
+    wgmma_m64n128k8_tf32_rs(*reinterpret_cast<float(*)[64]>(o), a, dv);
+    wgmma_m64n128k8_tf32_rs(*reinterpret_cast<float(*)[64]>(o + 64), a,
+                            smem_desc(vt_keys + 128 * kRowBytes, 16, 1024));
   }
 }
 
@@ -570,6 +645,7 @@ __global__ void __launch_bounds__(Smem<T, HD>::kThreads)
 flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap, T* __restrict__ out, const Problem P) {
   using S = Smem<T, HD>;
+  constexpr int BN = S::kBN;
   // The block's dynamic shared memory starts 1024-byte aligned (it has no
   // static shared memory), as the 128-byte swizzle of TMA and wgmma needs.
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -593,7 +669,7 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int kt_begin, kt_end;   // the block's key tiles
-  key_tiles(P, q_start, S::kRows, kt_begin, kt_end);
+  key_tiles(P, q_start, S::kRows, BN, kt_begin, kt_end);
   if (warp == S::kConsumers / 32) {
     if (lane == 0) produce(sm, &qmap, &kmap, &vmap, q_start, q_head, kv_head, kt_begin, kt_end);
     return;
@@ -602,7 +678,7 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   const int wg = warp / 4;                 // this warp's warpgroup and its 64 rows
   const int q0 = q_start + wg * kBM;
   int my_begin, my_end;                    // the key tiles those rows can see
-  key_tiles(P, q0, kBM, my_begin, my_end);
+  key_tiles(P, q0, kBM, BN, my_begin, my_end);
   const int g = lane >> 2, c = lane & 3;
   const int row0 = q0 + 16 * (warp % 4) + g;   // this thread's rows: row0, row0 + 8
   float o[HD / 2];
@@ -611,19 +687,20 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   mbar_wait(sm.q_full(), 0);
   if constexpr (S::kF32) {
-    split_tile<S::kGroups * S::kTileBytes, S::kConsumers>(reinterpret_cast<float*>(sm.q(0)),
-                                                          sm.q_small(0));
+    split_tile<S::kGroups * S::kQBytes, S::kConsumers>(reinterpret_cast<float*>(sm.q(0)),
+                                                       sm.q_small(0));
     consumers_sync_for_wgmma<S::kConsumers>();
   }
 
   for (int i = 0, kt = kt_begin; kt < kt_end; ++i, ++kt) {
     const int st = i % S::kStages;
-    const int k_start = kt * kBN;
+    const int k_start = kt * BN;
     const bool mine = kt >= my_begin && kt < my_end;
     mbar_wait(sm.full(st), (i / S::kStages) & 1);
-    float s[kBN / 2];
+    float s[BN / 2];
     float alpha[2];
     if constexpr (!S::kF32) {
+      static_assert(BN == kBM, "16-bit tiles of 64 keys");
       if (mine) {
         // S = Q K^T: HD / 16 steps of k16, 32 bytes each along a 128-byte slab
         wgmma_fence();
@@ -636,13 +713,13 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(s);
-        softmax_step(P, s, m, l, alpha, row0, k_start, c, tile_needs_mask(P, q0, k_start));
+        softmax_step<BN>(P, s, m, l, alpha, row0, k_start, c, tile_needs_mask(P, q0, k_start, BN));
         rescale(o, alpha);
         // P as 16-bit A fragments (T, rounded to nearest): k16 step kk is
         // key chunks 2kk and 2kk + 1
-        uint32_t pa[kBN / 4];
+        uint32_t pa[BN / 4];
 #pragma unroll
-        for (int kk = 0; kk < kBN / 16; ++kk) {
+        for (int kk = 0; kk < BN / 16; ++kk) {
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             pa[4 * kk + r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
@@ -652,13 +729,8 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
         // are two 8-row groups (1024 bytes apart), column slabs 64 rows apart
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kBN / 16; ++kk) {
-          const uint64_t dv = smem_desc(sm.v(st) + kk * 16 * kRowBytes, kBN * kRowBytes, 1024);
-          if constexpr (HD == 64)
-            wgmma_m64n64k16_rs<T>(o, pa + 4 * kk, dv);
-          else
-            wgmma_m64n128k16_rs<T>(o, pa + 4 * kk, dv);
-        }
+        for (int kk = 0; kk < BN / 16; ++kk)
+          pv_16bit<T, HD>(o, pa + 4 * kk, sm.v(st) + kk * 16 * kRowBytes);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(o);
@@ -668,15 +740,16 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     } else {
       // k and v into big and small TF32 parts, by all consumers: k in place
       // (small part in k_small), v transposed into V^T; then the stage is
-      // free once Q K^T has read k. Every warp's share of the last tile's
-      // products is done with k_small and V^T first. (Splitting the next
-      // tile while this one's products run was slower: the split and the
-      // shared-memory operands of Q K^T contend for shared memory.)
+      // free once Q K^T has read k (with kReuse: once P V has read V^T, which
+      // is written over k after Q K^T). Every warp's share of the last
+      // tile's products is done with k_small and V^T first. (Splitting the
+      // next tile while this one's products run was slower: the split and
+      // the shared-memory operands of Q K^T contend for shared memory.)
       if (i > 0) consumers_sync<S::kConsumers>();
-      split_tile<S::kTileBytes, S::kConsumers>(reinterpret_cast<float*>(sm.k(st)),
-                                               sm.k_small());
-      transpose_split_v<HD, S::kConsumers>(reinterpret_cast<const float*>(sm.v(st)),
-                                           sm.vt_big(), sm.vt_small());
+      split_tile<S::kKVBytes, S::kConsumers>(reinterpret_cast<float*>(sm.k(st)), sm.k_small());
+      if constexpr (!S::kReuse)
+        transpose_split_v<HD, BN, S::kConsumers>(reinterpret_cast<const float*>(sm.v(st)),
+                                                 sm.vt_big(), sm.vt_small());
       consumers_sync_for_wgmma<S::kConsumers>();
       if (mine) {
         // S = Q K^T in three passes of HD / 8 steps of k8 (32 bytes each):
@@ -690,25 +763,38 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
         for (int pass = 0; pass < 3; ++pass) {
 #pragma unroll
           for (int k = 0; k < HD / 8; ++k) {
-            const int off = (k / 4) * kBM * kRowBytes + (k % 4) * 32;
-            wgmma_m64n64k8_tf32_ss(s, smem_desc(qa[pass] + off, 16, 1024),
-                                   smem_desc(kb[pass] + off, 16, 1024), pass + k > 0);
+            const int qoff = (k / 4) * kBM * kRowBytes + (k % 4) * 32;
+            const int koff = (k / 4) * BN * kRowBytes + (k % 4) * 32;
+            const uint64_t da = smem_desc(qa[pass] + qoff, 16, 1024);
+            const uint64_t db = smem_desc(kb[pass] + koff, 16, 1024);
+            if constexpr (BN == 64)
+              wgmma_m64n64k8_tf32_ss(s, da, db, pass + k > 0);
+            else
+              wgmma_m64n32k8_tf32_ss(s, da, db, pass + k > 0);
           }
         }
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(s);
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(sm.empty(st));
+      if constexpr (S::kReuse) {
+        // every warp's Q K^T has read k and k_small: V^T goes over them
+        consumers_sync<S::kConsumers>();
+        transpose_split_v<HD, BN, S::kConsumers>(reinterpret_cast<const float*>(sm.v(st)),
+                                                 sm.vt_big(), sm.vt_small());
+        consumers_sync_for_wgmma<S::kConsumers>();
+      } else {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(sm.empty(st));
+      }
       if (mine) {
-        softmax_step(P, s, m, l, alpha, row0, k_start, c, tile_needs_mask(P, q0, k_start));
+        softmax_step<BN>(P, s, m, l, alpha, row0, k_start, c, tile_needs_mask(P, q0, k_start, BN));
         rescale(o, alpha);
         // P as TF32 A fragments, big and small: k8 step kk holds this
         // thread's keys 8kk + 2c (k index c) and 8kk + 2c + 1 (k index c + 4)
-        uint32_t pb[kBN / 2], ps[kBN / 2];
+        uint32_t pb[BN / 2], ps[BN / 2];
 #pragma unroll
-        for (int kk = 0; kk < kBN / 8; ++kk) {
+        for (int kk = 0; kk < BN / 8; ++kk) {
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             float big, small;
@@ -717,8 +803,8 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
             ps[4 * kk + r] = __float_as_uint(small);
           }
         }
-        // O += P V in three passes of kBN / 8 steps over V^T (HD rows, 64
-        // keys in two slabs of 32): p_small v_big + p_big v_small + p_big v_big
+        // O += P V in three passes of BN / 8 steps over V^T (HD rows, BN
+        // keys in slabs of 32): p_small v_big + p_big v_small + p_big v_big
         const uint32_t* pa[3] = {ps, pb, pb};
         const uint8_t* vb[3] = {reinterpret_cast<const uint8_t*>(sm.vt_big()),
                                 reinterpret_cast<const uint8_t*>(sm.vt_small()),
@@ -727,18 +813,16 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
 #pragma unroll
         for (int pass = 0; pass < 3; ++pass) {
 #pragma unroll
-          for (int kk = 0; kk < kBN / 8; ++kk) {
-            const uint64_t dv =
-                smem_desc(vb[pass] + (kk / 4) * HD * kRowBytes + (kk % 4) * 32, 16, 1024);
-            if constexpr (HD == 64)
-              wgmma_m64n64k8_tf32_rs(o, pa[pass] + 4 * kk, dv);
-            else
-              wgmma_m64n128k8_tf32_rs(o, pa[pass] + 4 * kk, dv);
-          }
+          for (int kk = 0; kk < BN / 8; ++kk)
+            pv_tf32<HD>(o, pa[pass] + 4 * kk, vb[pass] + (kk / 4) * HD * kRowBytes + (kk % 4) * 32);
         }
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(o);
+      }
+      if constexpr (S::kReuse) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(sm.empty(st));
       }
     }
   }
@@ -768,15 +852,15 @@ static EncodeTiled encode_tiled() {
 }
 
 // A map over a contiguous (heads, seq, hd) tensor read in boxes of one
-// 128-byte row slab x 64 rows x 1 head, 128-byte swizzled; reads past seq
-// or hd fill with zeros.
+// 128-byte row slab x rows x 1 head, 128-byte swizzled; reads past seq or
+// hd fill with zeros.
 template <typename T>
-static bool make_map(CUtensorMap* map, const void* ptr, int heads, int seq, int hd) {
+static bool make_map(CUtensorMap* map, const void* ptr, int heads, int seq, int hd, int rows) {
   EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)seq, (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)hd * sizeof(T), (cuuint64_t)seq * hd * sizeof(T)};
-  const cuuint32_t box[3] = {kRowBytes / (cuuint32_t)sizeof(T), (cuuint32_t)kBM, 1};
+  const cuuint32_t box[3] = {kRowBytes / (cuuint32_t)sizeof(T), (cuuint32_t)rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUtensorMapDataType type =
       std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
@@ -791,12 +875,12 @@ static bool make_map(CUtensorMap* map, const void* ptr, int heads, int seq, int 
 template <typename T, int HD>
 static int launch_flash(const void* q, const void* k, const void* v, void* out, int B,
                         const Problem& P, cudaStream_t stream) {
-  CUtensorMap qmap, kmap, vmap;
-  if (!make_map<T>(&qmap, q, B * P.Hq, P.Sq, P.hd) ||
-      !make_map<T>(&kmap, k, B * P.Hkv, P.Skv, P.hd) ||
-      !make_map<T>(&vmap, v, B * P.Hkv, P.Skv, P.hd))
-    return (int)cudaErrorInvalidValue;
   using S = Smem<T, HD>;
+  CUtensorMap qmap, kmap, vmap;
+  if (!make_map<T>(&qmap, q, B * P.Hq, P.Sq, P.hd, kBM) ||
+      !make_map<T>(&kmap, k, B * P.Hkv, P.Skv, P.hd, S::kBN) ||
+      !make_map<T>(&vmap, v, B * P.Hkv, P.Skv, P.hd, S::kBN))
+    return (int)cudaErrorInvalidValue;
   const int smem = S::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -810,19 +894,20 @@ template <typename T>
 static int dispatch_hd(const void* q, const void* k, const void* v, void* out, int B,
                        const Problem& P, cudaStream_t stream) {
   if (P.hd <= 64) return launch_flash<T, 64>(q, k, v, out, B, P, stream);
-  return launch_flash<T, 128>(q, k, v, out, B, P, stream);
+  if (P.hd <= 128) return launch_flash<T, 128>(q, k, v, out, B, P, stream);
+  return launch_flash<T, 256>(q, k, v, out, B, P, stream);
 }
 
 // out (B, Hq, Sq, hd) = attention of q (B, Hq, Sq, hd) over k, v
 // (B, Hkv, Skv, hd); all contiguous, 16-byte aligned, of one dtype: 0 =
-// f32, 1 = bf16, 2 = f16. hd <= 128, hd % 8 == 0 and Hq % Hkv == 0 are the
+// f32, 1 = bf16, 2 = f16. hd <= 256, hd % 8 == 0 and Hq % Hkv == 0 are the
 // wrapper's to arrange; scale multiplies the scores.
 extern "C" int mgit_flash_attention(const void* q, const void* k, const void* v, void* out,
                                     int B, int Hq, int Hkv, int Sq, int Skv, int hd, int causal,
                                     int window, int prefix_len, float scale, int dtype,
                                     int device, cudaStream_t stream) {
   cudaSetDevice(device);
-  if (hd > 128 || hd < 8 || hd % 8) return (int)cudaErrorInvalidValue;
+  if (hd > 256 || hd < 8 || hd % 8) return (int)cudaErrorInvalidValue;
   const Problem P{Hq, Hkv, Sq, Skv, hd, causal, window, prefix_len, scale * kLog2e};
   if (dtype == 0) return dispatch_hd<float>(q, k, v, out, B, P, stream);
   if (dtype == 1) return dispatch_hd<__nv_bfloat16>(q, k, v, out, B, P, stream);

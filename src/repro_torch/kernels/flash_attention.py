@@ -13,9 +13,10 @@ The kernel runs on Hopper's tensor cores through ``wgmma``: bf16 and f16
 directly (P rounded to the input's type for the second product), f32 as
 three TF32 passes (3xTF32), with k and v tiles loaded by TMA into
 a ring in shared memory. A block owns 64 query rows (128 for f32 at head
-dim 64) and walks the 64-key tiles some of them can see. It takes head
-dims that are a multiple of 8 up to 128; the wrapper pads any other head
-dim with zeros.
+dim 64) and walks the 64-key tiles (32-key for f32 above head dim 128)
+some of them can see. It is instantiated at head dims 64, 128 and 256 and
+takes any multiple of 8 up to 256; the wrapper pads any other head dim
+with zeros. Above 256 it raises.
 
 The kernel computes what ``flash_attention_ref`` (the reference's dense
 f32 oracle) computes. It does not copy the Pallas kernel's block skip,
@@ -34,7 +35,9 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
+# where a larger head dim waits (ROADMAP.md, queue 1, item 3)
+WIDER_HEADS_ITEM = "flash attention above head dim 256"
 HEAD_DIM_MULTIPLE = 8   # the kernel's TMA rows are whole 16-byte units
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -119,7 +122,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _, Hkv, Skv, _ = k.shape
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {hd}: the kernel takes at most "
-                         f"{MAX_HEAD_DIM}")
+                         f"{MAX_HEAD_DIM} (ROADMAP item "
+                         f"'{WIDER_HEADS_ITEM}')")
     kq, kk, kv = kernel_operands(q, k, v)
     out = torch.empty_like(kq)
     if out.numel():

@@ -1,4 +1,4 @@
-"""Model configs, parameters, the forward pass and decoding (dense family)."""
+"""Model configs, parameters, the forward pass and decoding, every family."""
 
 from repro_torch.models.config import (ModelConfig, get_config, list_archs,
                                        register_arch)

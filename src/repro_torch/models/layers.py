@@ -1,4 +1,4 @@
-"""Shared layer numerics of the dense family: norms, RoPE, attention, MLP.
+"""Shared layer numerics: norms, RoPE, attention, MLP and MoE.
 
 The math is the reference package's ``repro/models/layers.py``, in plain
 torch ops. Conventions kept from it:
@@ -16,8 +16,15 @@ into it and attends as the reference does: a prefill (S > 1) runs causal
 attention over the prompt itself through ``kernels.flash_attention`` (the
 CUDA kernel on the card, its plain version on the CPU), which computes the
 reference's ``chunked_attention`` function; a decode step attends over the
-cache with ``decode_attention``. Cross-attention, MoE and SSM layers
-arrive with their families.
+cache with ``decode_attention``. With ``xa`` it is cross-attention (K/V
+from ``xa``, no RoPE, no causal mask) in plain torch, as the reference
+computes it.
+
+``moe`` is the reference's dropped-token top-K MoE with one block of
+tokens (the reference's block count is 1 without a device mesh): routing
+in f32, per-expert capacity, a scatter into capacity slots and the mirror
+gather, and the shared expert. Its expert products are ``torch.einsum``,
+as the reference leaves them to XLA outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -174,29 +181,36 @@ def _write_cache(cache: Dict[str, torch.Tensor], k: torch.Tensor,
 def attention_layer(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
                     positions: torch.Tensor, causal: bool = True,
                     prefix_len: int = 0,
+                    xa: Optional[torch.Tensor] = None,
                     cache: Optional[Dict[str, torch.Tensor]] = None,
-                    cache_pos: int = 0) -> torch.Tensor:
-    """Self-attention sublayer: proj -> rope -> (cache) -> attention -> out.
+                    cache_pos: int = 0, return_kv: bool = False):
+    """Attention sublayer: proj -> rope -> (cache) -> attention -> out.
 
-    ``cache``: {"k", "v"} ring or linear buffers (B, Sc, Hkv, hd) for
-    decode, written IN PLACE at the integer write index ``cache_pos`` (the
-    reference returns new buffers instead)."""
+    ``xa`` switches to cross-attention (K/V from xa, no RoPE, no causal
+    mask). ``cache``: {"k", "v"} ring or linear buffers (B, Sc, Hkv, hd)
+    for decode, written IN PLACE at the integer write index ``cache_pos``
+    (the reference returns new buffers instead). Returns the output, or
+    (output, (k, v)) with ``return_kv``."""
     B, S, D = x.shape
     hd = cfg.resolved_head_dim
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    src = xa if xa is not None else x
     q = shard(torch.einsum("bsd,dh->bsh", x, p["wq"]),
               ("pod", "data"), None, "model").reshape(B, S, Hq, hd)
-    k = shard(torch.einsum("bsd,dh->bsh", x, p["wk"]),
-              ("pod", "data"), None, "model").reshape(B, S, Hkv, hd)
-    v = shard(torch.einsum("bsd,dh->bsh", x, p["wv"]),
-              ("pod", "data"), None, "model").reshape(B, S, Hkv, hd)
+    k = shard(torch.einsum("bsd,dh->bsh", src, p["wk"]),
+              ("pod", "data"), None, "model").reshape(B, src.shape[1], Hkv,
+                                                     hd)
+    v = shard(torch.einsum("bsd,dh->bsh", src, p["wv"]),
+              ("pod", "data"), None, "model").reshape(B, src.shape[1], Hkv,
+                                                     hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if xa is None:  # self-attention: rotary positions
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     if cache is None:
-        out = chunked_attention(q, k, v, cfg, causal=causal,
+        out = chunked_attention(q, k, v, cfg, causal=causal and xa is None,
                                 prefix_len=prefix_len)
     else:
         cache_pos = int(cache_pos)
@@ -217,7 +231,8 @@ def attention_layer(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
                                    cache_pos=cache_pos)
     out = shard(out.reshape(B, S, Hq * hd), ("pod", "data"), None, "model")
     out = torch.einsum("bsh,hd->bsd", out.to(x.dtype), p["wo"])
-    return shard(out, ("pod", "data"), None, None)
+    out = shard(out, ("pod", "data"), None, None)
+    return (out, (k, v)) if return_kv else out
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -243,7 +258,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLP / MoE
 # ---------------------------------------------------------------------------
 
 def mlp(x: torch.Tensor, p: Dict, cfg: ModelConfig,
@@ -259,5 +274,76 @@ def mlp(x: torch.Tensor, p: Dict, cfg: ModelConfig,
     return torch.einsum("bsf,fd->bsd", h, p[f"{prefix}_out"])
 
 
+def top_k(logits: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the ``k`` largest values along the last axis and
+    their indices, ties broken towards the lower index (``torch.topk``
+    leaves tie order to the implementation; a stable sort does not)."""
+    values, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+def route(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """The MoE's routing of tokens xt (T, D), in f32: router logits (T,
+    E), each token's top-K experts ``sel`` and softmaxed ``weights`` (T,
+    K), each choice's slot ``pos`` in its expert's queue, ``keep`` (pos <
+    capacity C) and C. A token's k-th choice takes the next slot of its
+    expert in the token-major (T * K) order."""
+    T = xt.shape[0]
+    E, K = cfg.n_experts, cfg.experts_per_token
+    C = min(max(int(cfg.capacity_factor * T * K / E), 1), T)
+    logits = torch.einsum("td,de->te", xt.to(torch.float32),
+                          router.to(torch.float32))
+    weights, sel = top_k(logits, K)                       # (T, K)
+    weights = torch.softmax(weights, dim=-1)
+    onehot = F.one_hot(sel, E).to(torch.float32)          # (T, K, E)
+    pos = (torch.cumsum(onehot.reshape(T * K, E), dim=0).reshape(T, K, E)
+           - onehot)
+    pos = torch.einsum("tke,tke->tk", pos, onehot).to(torch.int64)
+    return logits, sel, weights, pos, pos < C, C
+
+
+def moe(x: torch.Tensor, p: Dict, cfg: ModelConfig) -> torch.Tensor:
+    """Dropped-token top-K MoE with capacity, scatter/gather dispatch.
+
+    The reference's ``moe`` with one block of tokens: T = B * S tokens,
+    capacity ``C = max(int(capacity_factor * T * K / E), 1)`` clipped to
+    T (``route``). A choice past C drops (weight 0) to a sentinel slot,
+    whose gather reads 0."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    T = B * S
+    xt = x.reshape(T, D)
+    _, sel, weights, pos, keep, C = route(xt, p["router"], cfg)
+    weights = torch.where(keep, weights, torch.zeros_like(weights))
+
+    # destination slots; overflow goes to the sentinel slot E * C
+    dest = torch.where(keep, sel * C + pos,
+                       torch.full_like(pos, E * C)).reshape(T * K)
+    src = xt[:, None, :].expand(T, K, D).reshape(T * K, D)
+    ex_in = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
+    ex_in[dest] = src
+    ex_in = ex_in[:E * C].reshape(E, C, D)
+
+    if cfg.mlp_type == "swiglu":
+        g = torch.einsum("ecd,edf->ecf", ex_in, p["w_gate"])
+        h = torch.einsum("ecd,edf->ecf", ex_in, p["w_in"])
+        h = F.silu(g) * h
+    else:
+        h = F.gelu(torch.einsum("ecd,edf->ecf", ex_in, p["w_in"]),
+                   approximate="tanh")
+    ex_out = torch.einsum("ecf,efd->ecd", h, p["w_out"])   # (E, C, D)
+
+    ex_out = torch.cat([ex_out.reshape(E * C, D),
+                        torch.zeros((1, D), dtype=ex_out.dtype,
+                                    device=ex_out.device)])
+    gathered = ex_out[dest].reshape(T, K, D)
+    out = torch.einsum("tkd,tk->td", gathered, weights.to(x.dtype))
+
+    if cfg.n_shared_experts > 0:
+        out = out + mlp(x, p, cfg, prefix="shared_w").reshape(T, D)
+    return out.reshape(B, S, D)
+
+
 __all__ = ["NEG_INF", "rmsnorm", "rope", "chunked_attention",
-           "attention_layer", "decode_attention", "mlp"]
+           "attention_layer", "decode_attention", "mlp", "moe", "route",
+           "top_k"]

@@ -9,8 +9,8 @@ card), a :class:`~repro_torch.serve.router.Router` maps named endpoints to
 :class:`~repro_torch.serve.watch.LineageWatcher` hot-swaps endpoints on
 lineage publishes, and :mod:`repro_torch.serve.routes` exposes it all over
 HTTP. :class:`~repro_torch.serve.engine.ServeEngine` is the batched
-transformer prefill/decode engine for the dense family, whose prefill runs
-the flash-attention kernel on the card.
+prefill/decode engine for every model family, whose prefill runs the
+flash-attention kernel on the card.
 """
 
 from repro_torch.serve.engine import (ServeEngine, batch_lengths, left_align,

@@ -1,10 +1,18 @@
-"""Batched serving: prefill + greedy decode over the dense model API.
+"""Batched serving: prefill + greedy decode over the unified model API.
 
 The reference package's ``repro/serve/engine.py`` with the same left-
-aligned ragged-batch contract. The engine's params live on one device:
-the card unless the caller names another (``device="cpu"`` runs the plain
-versions on the host). Prefill runs attention through the flash-attention
-kernel on the card; decode steps update the cache in place.
+aligned ragged-batch contract, for every model family. The engine's params
+live on one device: the card unless the caller names another
+(``device="cpu"`` runs the plain versions on the host). Prefill runs
+self-attention through the flash-attention kernel on the card; decode
+steps update the cache in place.
+
+A batch's ``patches`` (vlm) and ``frames`` (encdec/audio) go to prefill
+with its tokens. A vlm's prompt ends at position ``n_prefix_tokens + S -
+1``, so its decode starts there plus one. The reference's engine starts
+every family at ``S``, which overwrites a vlm's last prompt slots and
+rotates its tokens at the wrong positions (pinned in
+``tests/test_torch_serve.py``).
 """
 
 from __future__ import annotations
@@ -126,13 +134,17 @@ class ServeEngine:
         lengths = batch_lengths({**batch, "tokens": tokens})
         if lengths is not None:
             tokens = left_align(tokens, lengths)
+        inputs = {k: _tensor(v, self.device) for k, v in batch.items()
+                  if k in ("patches", "frames")}
         with torch.inference_mode():
             last_logits, cache = self._prefill(self.params,
-                                               {"tokens": tokens})
+                                               {**inputs, "tokens": tokens})
             token = torch.argmax(last_logits, dim=-1).to(torch.int32)[:, None]
-            # every row's prompt now ends at physical slot S - 1, so the
-            # first decoded token lands at slot S for the whole batch
-            pos = S
+            # every row's prompt now ends at physical slot S - 1 (after a
+            # vlm's visual prefix), so the first decoded token lands at the
+            # next slot for the whole batch
+            pos = S + (self.cfg.n_prefix_tokens
+                       if self.cfg.family == "vlm" else 0)
             out = [token]
             for _ in range(n_tokens - 1):
                 token, _, cache = self._step(self.params, cache, token, pos)

@@ -41,6 +41,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.common import bf16
 from repro_torch.common.hashing import tensor_hash
 from repro_torch.core.artifact import ModelArtifact
 from repro_torch.core.graphir import LayerGraph
@@ -97,7 +98,7 @@ class ResidentView:
         for name in self.artifact.graph.topo_order():
             for pname, value in sorted(self.params.items()):
                 if pname.startswith(name + "/") and np.ndim(value) == 2:
-                    ws.append(np.asarray(value, np.float32))
+                    ws.append(bf16.widen(value))
         if not ws:
             raise ValueError(f"view {self.ref!r} has no 2-D params to probe")
         if x is None:

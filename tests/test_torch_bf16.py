@@ -18,6 +18,9 @@ stated:
   monkeypatched ``_tensor_from_npy_view``); with that shim both packages
   write the same manifests, CAS keys and npy bytes and check out the same
   bits;
+* a bf16 view's ``probe`` widens its weights (never reads the carrier's
+  bits as integers), as the reference's probe of its ``ml_dtypes``
+  weights does;
 * the slice: a reduced bf16 qwen3-0.6b lineage, its pool view, and
   ``prefill``/``decode_step`` within 3e-2 of the reference (the bf16
   tolerance of the reference's own kernel tests).
@@ -38,6 +41,7 @@ from repro.kernels import ops as ref_ops
 from repro.models import get_config as ref_get_config
 from repro.models.model import decode_step as ref_decode_step
 from repro.models.model import prefill as ref_prefill
+from repro.serve import ResidentView as RefView
 from repro.store import ArtifactStore as RefStore
 from repro.store.checkpoint import CheckpointManager as RefManager
 from repro.store.checkpoint import flatten_state as ref_flatten
@@ -52,7 +56,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.delta_quantize import (delta_quantize_flat,
                                                 dequant_apply_flat)
 from repro_torch.models import decode_step, get_config, prefill
-from repro_torch.serve import ModelPool
+from repro_torch.serve import ModelPool, ResidentView
 from repro_torch.store import CAS, ArtifactStore, CheckpointManager
 from repro_torch.store.delta import host_dequant, host_snapshot
 
@@ -741,3 +745,28 @@ def test_slice_qwen3_bf16_lineage_pool_and_serving(tmp_path, monkeypatch,
                                    atol=SLICE_TOL, rtol=0)
         token = np.argmax(np.asarray(ref_logits, np.float32), -1).astype(
             np.int32)[:, None]
+
+
+def test_bf16_view_probe_equals_the_probe_over_widened_weights(qwen3_bf16):
+    """``ResidentView.probe`` (the response of ``/predict``) of a bf16
+    view equals the probe of the same weights widened to f32, and the
+    reference's probe of its ``ml_dtypes`` weights, bit for bit."""
+    ref_cfg, cfg, flats = qwen3_bf16
+    theirs = flats["ft2"]
+    art = convert.to_artifact(theirs, cfg.name)
+    assert all(bf16.is_bf16(v) for v in art.params.values())
+    got = ResidentView("ft2", art, [], 0, 0.0).probe()
+    widened = convert.to_artifact(
+        {k: bf16.widen(v) for k, v in art.params.items()}, cfg.name)
+    want = ResidentView("ft2-f32", widened, [], 0, 0.0).probe()
+    np.testing.assert_array_equal(got, want)
+    ref_art = RefArtifact(state_graph(theirs, ref_cfg.name), theirs,
+                          model_type=ref_cfg.name)
+    np.testing.assert_array_equal(got, RefView("ft2", ref_art, [], 0,
+                                               0.0).probe())
+    # the carrier's bits read as integers give another response
+    as_ints = convert.to_artifact(
+        {k: np.asarray(v, np.float32) for k, v in art.params.items()},
+        cfg.name)
+    assert not np.array_equal(got, ResidentView("ints", as_ints, [], 0,
+                                                0.0).probe())

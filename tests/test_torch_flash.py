@@ -6,6 +6,9 @@ are made with numpy from a seed and fed to both packages; bf16 inputs are
 the same f32 draws rounded to bf16 on each side. Tolerances are the
 reference test's (``tests/test_kernels.py``): 2e-5 in f32, 3e-2 in bf16.
 
+Head dims 256 and 200 (the card's 256 instantiation, paligemma-3b's
+head dim) are held against the reference kernel too.
+
 It also pins a reference behaviour: the Pallas kernel's block skip ignores
 ``prefix_len``, so once a prefix-LM prefix reaches past a query block it
 drops key blocks the prefix makes visible. The port follows the oracle.
@@ -47,6 +50,15 @@ SPECS = [
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2),
           "float16": (jnp.float16, torch.float16, 1e-2)}
+# head dims 256 (paligemma-3b's, MQA) and 200 (padded to the 256
+# instantiation on the card), with and without a prefix inside the
+# reference kernel's first 16-row block
+WIDE_SPECS = [
+    dict(B=1, Hq=8, Hkv=1, S=32, hd=256, causal=True),
+    dict(B=1, Hq=8, Hkv=1, S=32, hd=256, causal=True, prefix_len=12),
+    dict(B=2, Hq=2, Hkv=2, S=48, hd=200, causal=True),
+    dict(B=2, Hq=2, Hkv=2, S=48, hd=200, causal=True, prefix_len=16),
+]
 
 
 def _inputs(spec, seed=0):
@@ -69,7 +81,7 @@ def _f32(x) -> np.ndarray:
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("spec", SPECS, ids=lambda s: "-".join(
+@pytest.mark.parametrize("spec", SPECS + WIDE_SPECS, ids=lambda s: "-".join(
     f"{k}{v}" for k, v in s.items()))
 def test_plain_version_matches_reference_kernel_and_oracle(spec, dtype):
     jdt, tdt, tol = DTYPES[dtype]
@@ -190,6 +202,19 @@ def test_roofline_hand_counts():
         pytest.approx(3 * ops / 495e12 * 1e3), "operations")
     # a window halves nothing here but the visible pairs
     assert fa.roofline(*serve, torch.float32, window=64)[0] < ms
+    # paligemma-3b's prefill in phase 8: 256 patches (a bidirectional
+    # prefix) + 512 text tokens, MQA at head_dim 256; 327,936 visible
+    # pairs per head (256 x 256 in the prefix rows, 257 + ... + 768 after)
+    pali = (8, 8, 1, 768, 768, 256)
+    pairs = 256 * 256 + sum(range(257, 769))
+    assert pairs == 327_936
+    ops = 4 * 256 * 8 * 8 * pairs
+    assert fa.flops(8, 8, 768, 768, 256, prefix_len=256) == ops
+    ms, by = fa.roofline(*pali, torch.bfloat16, prefix_len=256)
+    assert by == "operations" and round(ms, 4) == 0.0217
+    assert ms == pytest.approx(ops / 989e12 * 1e3)
+    nbytes = (2 * 8 * 8 * 768 + 2 * 8 * 1 * 768) * 256 * 2
+    assert nbytes == 56_623_104 and round(nbytes / 3.35e12 * 1e3, 4) == 0.0169
     # f16 runs on the same tensor cores at the same rate as bf16
     assert fa.roofline(*serve, torch.float16) == fa.roofline(
         *serve, torch.bfloat16)
@@ -314,4 +339,10 @@ def test_kernel_operands_pad_head_dim_and_align():
     assert kq.data_ptr() % 16 == 0 and torch.equal(kq, shifted)
     aligned = torch.randn(1, 2, 5, 16)
     assert fa.kernel_operands(aligned, aligned, aligned)[0] is aligned
+    # above 128 the same rule: 250 -> 256, 200 (a multiple of 8) as it is
+    wide = torch.randn(1, 1, 3, 250)
+    assert fa.kernel_operands(wide, wide, wide)[0].shape[-1] == 256
+    wide = torch.randn(1, 1, 3, 200)
+    assert fa.kernel_operands(wide, wide, wide)[0] is wide
+    assert fa.MAX_HEAD_DIM == 256
 

@@ -6,7 +6,10 @@
   token logits and the cache's K/V within 2e-5 of the reference (matrix
   products sum in another order, so the bits differ).
 * Engine: the reference's engine tests, each also requiring the port's
-  tokens to equal the reference ``ServeEngine``'s on the same weights.
+  tokens to equal the reference ``ServeEngine``'s on the same weights; an
+  audio model's frames and a vlm's patches reach prefill, and a vlm
+  decodes after its visual prefix (the reference's engine does not:
+  pinned).
 * Pool: a lineage committed by the reference store; the port's pool views
   equal the reference pool's bit for bit with the same counters, on the
   host (``backend="ref"``) and on its device path with the device mapped
@@ -35,6 +38,7 @@ from repro.models import get_config as ref_get_config
 from repro.models import init_params as ref_init_params
 from repro.models.model import cache_shapes as ref_cache_shapes
 from repro.models.model import decode_step as ref_decode_step
+from repro.models.model import forward as ref_forward
 from repro.models.model import prefill as ref_prefill
 from repro.remote.transport import lineage_etag as ref_lineage_etag
 from repro.serve import LineageWatcher as RefWatcher
@@ -56,7 +60,7 @@ import repro_torch.models.layers as layers
 from repro_torch.core import LayerGraph, LineageGraph, ModelArtifact
 from repro_torch.kernels import ops
 from repro_torch.models import (cache_shapes, decode_step, flat_paths,
-                                get_config, prefill)
+                                forward, get_config, prefill)
 from repro_torch.serve import (BitIdentityError, EndpointUnavailable,
                                HubLineageSource, LineageWatcher,
                                LocalLineageSource, ModelPool, Router,
@@ -178,8 +182,13 @@ def test_cache_shapes_match_reference(window):
         assert {k: s for k, (s, _) in ours.items()} == {
             k: s for k, (s, _) in ref.items()}
         assert all(d == torch.float32 for _, d in ours.values())
-    with pytest.raises(NotImplementedError, match="other model families"):
-        cache_shapes(dataclasses.replace(cfg, family="ssm"), 1, 4)
+    # every family has a cache now (tests/test_torch_families.py holds
+    # each one's against the reference); an SSM's holds state, not K/V
+    ref_cfg, cfg = _cfgs("mamba2-780m", window=window)
+    assert {k: s for k, (s, _) in cache_shapes(cfg, 3, 20).items()} == {
+        k: s for k, (s, _) in ref_cache_shapes(ref_cfg, 3, 20).items()}
+    with pytest.raises(ValueError, match="unknown family"):
+        cache_shapes(dataclasses.replace(cfg, family="rnn"), 1, 4)
 
 
 @pytest.mark.parametrize("name", ["qwen3-0.6b", "paper-bert-small"])
@@ -290,6 +299,68 @@ def test_mask_and_lengths_agree(engines):
                             "mask": np.array([[1, 1, 1, 1], [1, 1, 0, 0]])},
                   3)
     np.testing.assert_array_equal(a, b)
+
+
+def test_engine_passes_frames_to_an_audio_model_as_reference():
+    """An encoder-decoder's ``frames`` reach prefill: the port's engine
+    gives the reference engine's tokens on the same weights and frames,
+    and other frames give other tokens."""
+    ref_cfg, cfg, ref_params, params = _model("seamless-m4t-large-v2")
+    rng = np.random.default_rng(6)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, PROMPT))
+             .astype(np.int32),
+             "frames": rng.normal(size=(2, 10, cfg.d_model))
+             .astype(np.float32)}
+    ref = RefEngine(ref_cfg, ref_params, max_len=MAX_LEN)
+    engine = ServeEngine(cfg, params, max_len=MAX_LEN, device="cpu")
+    out = _generate((ref, engine), batch, 4)
+    other = engine.generate({"tokens": torch.from_numpy(batch["tokens"]),
+                             "frames": torch.zeros((2, 10, cfg.d_model))}, 4)
+    assert not np.array_equal(other.numpy(), out)
+
+
+def test_vlm_engine_decodes_after_the_prefix_unlike_reference():
+    """A vlm's prompt ends at slot n_prefix_tokens + S - 1, so the port's
+    engine decodes from n_prefix_tokens + S: each greedy token is the
+    argmax of ``forward`` over the patches and the extended text, and one
+    decode step's logits equal that forward's within 2e-5.
+
+    Reference behaviour (pinned): its engine decodes from S, where the
+    first step overwrites a prompt slot and rotates the token at the wrong
+    position, so its logits miss the forward's by far more."""
+    ref_cfg, cfg, ref_params, params = _model("paligemma-3b")
+    rng = np.random.default_rng(8)
+    tokens = rng.integers(0, cfg.vocab_size, (2, PROMPT)).astype(np.int32)
+    patches = rng.normal(size=(2, cfg.n_prefix_tokens, cfg.d_model)) \
+        .astype(np.float32)
+    batch = {"tokens": torch.from_numpy(tokens),
+             "patches": torch.from_numpy(patches)}
+    engine = ServeEngine(cfg, params, max_len=MAX_LEN, device="cpu")
+    out = engine.generate(batch, 3)
+    for i in (1, 2):
+        ext = torch.cat([batch["tokens"], out[:, :i]], dim=1)
+        logits = forward(cfg, params, {"tokens": ext, "patches":
+                                       batch["patches"]})[:, -1]
+        assert torch.equal(torch.argmax(logits, -1).to(torch.int32),
+                           out[:, i])
+
+    ref_logits, ref_cache = ref_prefill(
+        ref_cfg, ref_params, {"tokens": jnp.asarray(tokens),
+                              "patches": jnp.asarray(patches)},
+        max_len=MAX_LEN)
+    token = np.argmax(np.asarray(ref_logits), -1).astype(np.int32)[:, None]
+    want = np.asarray(ref_forward(
+        ref_cfg, ref_params,
+        {"tokens": jnp.asarray(np.concatenate([tokens, token], 1)),
+         "patches": jnp.asarray(patches)}))[:, -1]
+    _, cache = prefill(cfg, params, batch, max_len=MAX_LEN)
+    ours, _ = decode_step(cfg, params, torch.from_numpy(token), cache,
+                          PROMPT + cfg.n_prefix_tokens)
+    _close(want, ours, "vlm decode step at prefix + S")
+    # the reference engine's position: S (src/repro/serve/engine.py)
+    theirs, _ = ref_decode_step(ref_cfg, ref_params, jnp.asarray(token),
+                                ref_cache, jnp.asarray(PROMPT, jnp.int32))
+    assert np.abs(np.asarray(theirs) - want).max() > 0.1
 
 
 def test_engine_defaults_to_the_card():
