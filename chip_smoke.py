@@ -58,6 +58,31 @@ exits non-zero on failure:
    8 x 512-token prompts and a ragged batch; two rows are held against
    the port's engine on the host (prefill logits within 1e-3, greedy
    tokens equal except after a near tie);
+4e. collaboration, on phase 4's repository as 4b leaves it (base -> ft1
+   -> ft2 -> ft3, task-head, ft4): a port ``HubService`` on the card's
+   store (token auth, a loopback port) receives a push of the lineage
+   over ``HttpTransport`` (every object moved; a second push moves none;
+   hub fsck clean); a clone of it must hold phase 4's refs and check out
+   ft3, task-head and ft4 on the card hash-exact and equal to phase 4's
+   checkouts bit for bit; a shallow push of ft3 (``filter="ft3"``) to an
+   empty tenant of a second hub, whose CAS lacks ft3's chain, flattens
+   ft3 on the card (depth 0, equal to the clone's checkout, fsck clean);
+   ``fetch_param_shard`` brings shard 0 of 4 of ft3's embed/tok into an
+   empty store, equal to the checkout's rows; a ``ModelPool`` over the
+   hub's directory behind ``ServeApp`` and a ``Router`` with
+   ``prod=branch:base`` and a ``LineageWatcher`` on ``HubLineageSource``
+   resolves prod to ft4, its view and probe equal to a host view's; a
+   second clone B is taken, clone A re-commits ft4 with its encoder trunk
+   edited and pushes, B re-commits it with embed/tok edited and pulls:
+   the auto-merge must classify them as the reference does (dependent
+   changes with no tests: possible_conflict, "auto-merged models") and
+   commit the merged tip on the card, hash-exact and within a
+   quantization step of A's and B's edits, with the same merged ref as
+   the same pull through a host store on a copy of B; B pushes the merge
+   (hub fsck clean), and a watcher poll under client load swaps prod to
+   it (a view built on the card through chain_apply, equal to the host's
+   bit for bit, no failed request). It fails unless dequant_apply,
+   chain_apply and snapshot_fused each launched;
 4c. float16: base -> ft1 -> ft2 plus task-head, every tensor float16, is
    committed and checked out through the card's store; its manifest refs
    and checkouts must equal a host (``backend="ref"``) store's, and a
@@ -65,14 +90,15 @@ exits non-zero on failure:
    prefills 8 x 512 prompts on the ft2 pool view in float16 (the f16
    flash kernel), two rows held against the host engine on the same
    weights in f32;
-4d. bfloat16: a lineage of full-width qwen3-0.6b (28 layers, vocab
-   151,936, 596 M parameters) in its own dtype, random weights from the
+4d. bfloat16: a lineage of full-width qwen3-0.6b (vocab 151,936, depth
+   cut to ``BF16_LAYERS`` = 14 of its 28 layers for time, 376 M
+   parameters) in its own dtype, random weights from the
    seed, base -> ft1 -> ft2 (noise drawn in f32 and narrowed) plus
    task-head (ft1 with the last layer of layers/mlp/w_out re-drawn: an
    int8-overflowing delta), committed and checked out through the card's
    store (bf16 delta_quantize and dequant_apply), hash-exact, within the
    quantization step of the live weights, fsck clean; the lineage cut to
-   layers 0, 1, 2 and 27 (``BF16_CUT_LAYERS``, embed/tok left out: cut for
+   layers 0, 1, 2 and 13 (``BF16_CUT_LAYERS``, embed/tok left out: cut for
    time) committed through a card store and a host store with refs and
    bits equal, and equal to the whole checkout's layers; a ModelPool view
    of ft2 on the card equal to the checkout;
@@ -141,7 +167,7 @@ exits non-zero on failure:
    every new node checks out hash-exact and equal to the host's, with a
    clean fsck over the models and the test ledger.
 
-Phases 4, 4b, 4c, 4d, 8, 9, 6 and 7 (in that order) each zero every
+Phases 4, 4b, 4e, 4c, 4d, 8, 9, 6 and 7 (in that order) each zero every
 kernel's launch count (and its count by operand dtype) just before they
 drive their path and read it just after. The line before last is one
 JSON object describing each kernel; the last line is
@@ -821,12 +847,12 @@ def time_kernels(gen):
     for name in ("delta_quantize", "dequant_apply"):
         for sub in ("f16", "bf16"):
             out[name][sub] = out.pop(f"{name}_{sub}")
-    out["flash_attention"] = time_flash(gen, SERVE_SHAPE, plain=True)
+    out["flash_attention"] = time_flash(gen, SERVE_SHAPE)
     out["flash_attention"]["qwen3_0_6b"] = time_flash(gen, QWEN3_SHAPE)
     out["flash_attention"]["qwen3_0_6b_serve"] = time_flash(
         gen, QWEN3_SERVE_SHAPE)
     out["flash_attention"]["paligemma_3b_serve"] = time_flash(
-        gen, PALIGEMMA_SERVE_SHAPE, plain=True, masks=PALIGEMMA_MASKS)
+        gen, PALIGEMMA_SERVE_SHAPE, masks=PALIGEMMA_MASKS)
     return out
 
 
@@ -875,9 +901,9 @@ def sdpa_backend(q, k, v, mask):
     fail("no SDPA backend takes the prefix-LM mask")
 
 
-def time_flash(gen, shape, plain=False, masks=None):
+def time_flash(gen, shape, masks=None):
     """The flash kernel's milliseconds at ``shape`` (causal, or ``masks``)
-    in f32, bf16 and f16, each beside its bound
+    in f32, bf16 and f16, each beside its plain version's, its bound
     (``flash_attention.roofline``) and one library call that computes the
     same function, ``scaled_dot_product_attention`` (timed here, never
     called by the port), on k and v expanded to the query heads outside
@@ -928,10 +954,9 @@ def time_flash(gen, shape, plain=False, masks=None):
             f"library_ms{tag}": graph_ms(library, 20),
             f"eager_ms{tag}": cuda_ms(kernel, 20),
             f"library_eager_ms{tag}": cuda_ms(library, 20),
-            f"bound_ms{tag}": bound, f"bound_by{tag}": by})
-        if plain:
-            out[f"plain_ms{tag}"] = cuda_ms(
-                lambda: flash_attention_ref(q, k, v, **masks), 5)
+            f"bound_ms{tag}": bound, f"bound_by{tag}": by,
+            f"plain_ms{tag}": cuda_ms(
+                lambda: flash_attention_ref(q, k, v, **masks), 5)})
     return out
 
 
@@ -1380,13 +1405,16 @@ def serve_view(label, cfg, flat, gen, n_tokens, host_dtype=None, *,
 # ---------------------------------------------------------------------------
 
 BF16_ARCH = "qwen3-0.6b"
+# depth cut for time when phase 4e came (the whole script took 1,124 s at
+# all 28 layers); the width, embed/tok and the head stay whole
+BF16_LAYERS = 14
 BF16_NODES = ("base", "ft1", "ft2", "task-head")
 BF16_CHECKOUT = ("ft2", "task-head")
 # the layers of the lineage that also go through a host store (cut for
 # time: the host store's commit and checkout of all 28 took 145 s): the
 # first three and the last, whose w_out task-head re-draws (its int32
 # delta); embed/tok is left out
-BF16_CUT_LAYERS = (0, 1, 2, 27)
+BF16_CUT_LAYERS = (0, 1, 2, BF16_LAYERS - 1)
 # finetune noise, drawn in f32 and narrowed: it must exceed the weights'
 # bf16 ulp (about 1.2e-4 at the 0.03 of a 1024-wide layer) or the children
 # round back onto their parents
@@ -1510,7 +1538,8 @@ def bf16_path(workdir, card, seed):
     from repro_torch.serve import ModelPool
     from repro_torch.store import ArtifactStore
 
-    cfg = get_config(BF16_ARCH)     # its own dtype: bfloat16
+    cfg = dataclasses.replace(get_config(BF16_ARCH),   # its own dtype:
+                              n_layers=BF16_LAYERS)      # bfloat16
     t0 = time.perf_counter()
     params, changed = bf16_lineage(cfg, seed)
     n_params = sum(v.size for v in params["base"].values())
@@ -1550,8 +1579,8 @@ def bf16_path(workdir, card, seed):
           f"{json.dumps(launches)}, by dtype "
           f"{json.dumps(by_dtype, sort_keys=True)} ({card})", flush=True)
 
-    # the lineage cut to 4 of its 28 layers through a card store and a
-    # host store: the same refs and bits
+    # the lineage cut to 4 of its layers through a card store and a host
+    # store: the same refs and bits
     t4 = time.perf_counter()
     host_s = compare_cut("bf16 path", workdir, cfg.name, params, out,
                          BF16_CUT_LAYERS, BF16_CHECKOUT)
@@ -2229,6 +2258,427 @@ def serving_path(cfg, workdir, seed):
     launches = read_launches("serving")
     print(f"serving: phase took {time.perf_counter() - t0:.3f} s, launches "
           f"{json.dumps(launches)}", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: collaboration over a hub, on phase 4's repository
+# ---------------------------------------------------------------------------
+
+HUB_TOKEN = "chip-smoke-token"
+# a pull's outcome for a node both sides re-committed, when Figure 2's
+# decision tree merges their models (remote/sync.py)
+AUTO_MERGED = ("auto-merged models: dependent changes; no tests registered "
+               "— verify manually")
+COLLAB_CHECKOUT = ("ft3", "task-head", "ft4")
+SHARDS = 4
+
+
+def _hub(root):
+    """A port HubService over ``root`` on the card's store, token-guarded,
+    served from a thread on a loopback ephemeral port."""
+    from repro_torch.hub import HubService, start_in_thread
+    service = HubService(root, token=HUB_TOKEN)
+    server, thread = start_in_thread(service)
+    return service, server, thread
+
+
+def _fsck_clean(label, report):
+    if not report["ok"] or report.get("refcount_drift"):
+        fail(f"{label}: fsck is not clean: "
+             f"{ {k: report.get(k) for k in ('corrupt', 'missing_objects', 'refcount_drift', 'dangling_refs')} }")
+
+
+def _same_bits(label, got, want):
+    """Two {key: array} checkouts or views are equal bit for bit."""
+    import numpy as np
+    if set(got) != set(want):
+        fail(f"{label}: other params than the reference checkout")
+    for k, v in got.items():
+        a, b = np.asarray(v), np.asarray(want[k])
+        if a.dtype != b.dtype or a.shape != b.shape or \
+                a.view(np.uint8).tobytes() != b.view(np.uint8).tobytes():
+            fail(f"{label}: {k} differs from the reference checkout")
+
+
+def _hash_exact(label, store, ref, tensors):
+    from repro_torch.common.hashing import tensor_hash
+    entries = store.get_manifest(ref)["params"]
+    if set(tensors) != set(entries):
+        fail(f"{label}: checked out other params than committed")
+    for k, v in tensors.items():
+        if tensor_hash(v) != entries[k]["hash"]:
+            fail(f"{label}: {k} does not match its manifest hash")
+
+
+def collab_push_clone(graph, root, workdir, url, service, card):
+    """Steps 2 and 3: push phase 4's lineage, push it again, clone it, and
+    check out ``COLLAB_CHECKOUT`` of the clone and of phase 4's repository
+    on the card. Returns (clone A's directory, its checkouts)."""
+    import torch
+
+    from repro_torch.remote import HttpTransport, RemoteState, clone, push
+    from repro_torch.store import ArtifactStore
+
+    t0 = time.perf_counter()
+    rep = push(graph, HttpTransport(url, token=HUB_TOKEN),
+               state=RemoteState(root, "hub"))
+    push_s = time.perf_counter() - t0
+    if not rep.published or not \
+            rep.objects_transferred == rep.objects_total > 0:
+        fail(f"collab push: published={rep.published}, "
+             f"{rep.objects_transferred} of {rep.objects_total} objects")
+    again = push(graph, HttpTransport(url, token=HUB_TOKEN),
+                 state=RemoteState(root, "hub"))
+    if again.objects_transferred != 0 or not again.published:
+        fail(f"collab push: a second push moved {again.objects_transferred} "
+             f"objects")
+    _fsck_clean("collab push: the hub", service.fsck())
+    print(f"collab push: {len(rep.selected_nodes)} nodes, "
+          f"{rep.objects_transferred} objects, {rep.bytes_transferred} bytes "
+          f"in {push_s:.3f} s ({rep.bytes_transferred / push_s / 1e6:.1f} "
+          f"MB/s); second push moved {again.objects_transferred} objects; "
+          f"hub fsck clean ({card})", flush=True)
+
+    dest = os.path.join(workdir, "clone-a")
+    t0 = time.perf_counter()
+    rep = clone(url, dest)
+    clone_s = time.perf_counter() - t0
+    from repro_torch.core import LineageGraph
+    ga = LineageGraph(path=dest, store=ArtifactStore(root=dest,
+                                                     chunk_threshold=0))
+    refs = {n: graph.nodes[n].artifact_ref for n in graph.nodes}
+    got = {n: ga.nodes[n].artifact_ref for n in ga.nodes}
+    if got != refs:
+        fail(f"collab clone: refs {got} differ from phase 4's {refs}")
+    t0 = time.perf_counter()
+    out = {n: dict(ga.store.materialize_artifact(refs[n]).params)
+           for n in COLLAB_CHECKOUT}
+    torch.cuda.synchronize()
+    checkout_s = time.perf_counter() - t0
+    mine = ArtifactStore(root=root, chunk_threshold=0)
+    for n in COLLAB_CHECKOUT:
+        _hash_exact(f"collab clone: {n}", ga.store, refs[n], out[n])
+        _same_bits(f"collab clone: {n}", out[n],
+                   mine.materialize_artifact(refs[n]).params)
+    _fsck_clean("collab clone", ga.store.fsck(list(refs.values())))
+    print(f"collab clone: {rep.objects_transferred} objects, "
+          f"{rep.bytes_transferred} bytes in {clone_s:.3f} s "
+          f"({rep.bytes_transferred / clone_s / 1e6:.1f} MB/s); checkout of "
+          f"{'+'.join(COLLAB_CHECKOUT)} {checkout_s:.3f} s, hash-exact and "
+          f"equal to phase 4's checkouts bit for bit; fsck clean ({card})",
+          flush=True)
+    return dest, out
+
+
+def collab_shallow_and_shard(workdir, clone_a, out, url, card):
+    """Steps 4 and 5: a shallow push of ft3 from clone A to an empty tenant
+    of a second hub (whose CAS holds none of its chain, so ft3 flattens on
+    the card), then shard 0 of ``SHARDS`` of ft3's embed/tok fetched into
+    an empty store."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import LineageGraph
+    from repro_torch.dist.sharding import shard_cuts
+    from repro_torch.remote import HttpTransport, push
+    from repro_torch.remote.sync import fetch_param_shard
+    from repro_torch.store import ArtifactStore
+
+    ga = LineageGraph(path=clone_a, store=ArtifactStore(root=clone_a,
+                                                        chunk_threshold=0))
+    ft3 = ga.nodes["ft3"].artifact_ref
+    objects = ga.store.cas.object_count()
+    service, server, thread = _hub(os.path.join(workdir, "hub-shallow"))
+    try:
+        t0 = time.perf_counter()
+        rep = push(ga, HttpTransport(server.url + "/r/shallow",
+                                     token=HUB_TOKEN), filter="ft3")
+        torch.cuda.synchronize()
+        shallow_s = time.perf_counter() - t0
+        flat = rep.flattened.get(ft3)
+        if not rep.published or flat is None:
+            fail(f"collab shallow: published={rep.published}, flattened "
+                 f"{rep.flattened}")
+        tenant = LineageGraph(path=os.path.join(service.root, "repos",
+                                                "shallow"),
+                              store=ArtifactStore(root=service.root,
+                                                  chunk_threshold=0))
+        manifest = tenant.store.get_manifest(tenant.nodes["ft3"].artifact_ref)
+        if sorted(tenant.nodes) != ["ft3"] or \
+                tenant.nodes["ft3"].artifact_ref != flat or \
+                manifest["depth"] != 0:
+            fail(f"collab shallow: tenant nodes {sorted(tenant.nodes)}, "
+                 f"depth {manifest['depth']}")
+        flat_out = dict(tenant.store.materialize_artifact(flat).params)
+        _hash_exact("collab shallow: ft3", tenant.store, flat, flat_out)
+        _same_bits("collab shallow: ft3", flat_out, out["ft3"])
+        _fsck_clean("collab shallow: the second hub", service.fsck())
+        if ga.store.cas.object_count() != objects:
+            fail("collab shallow: the flatten committed objects into the "
+                 "sender's store")
+        print(f"collab shallow: ft3 flattened (depth 0) and pushed "
+              f"({rep.objects_transferred} objects, {rep.bytes_transferred} "
+              f"bytes) in {shallow_s:.3f} s; its checkout equals the clone's "
+              f"ft3 bit for bit; fsck clean ({card})", flush=True)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+
+    key = "embed/tok"
+    value = np.ascontiguousarray(out["ft3"][key])
+    consumer = ArtifactStore(root=os.path.join(workdir, "shard"),
+                             chunk_threshold=0)
+    t0 = time.perf_counter()
+    got = fetch_param_shard(consumer, HttpTransport(url, token=HUB_TOKEN),
+                            ft3, key, 0, SHARDS)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    cuts = shard_cuts(key, value.shape, value.dtype.itemsize, SHARDS)
+    end = value.nbytes if cuts is None else cuts[0]
+    if got != value.view(np.uint8).tobytes()[:end]:
+        fail(f"collab shard: shard 0 of {key} differs from the checkout's "
+             f"first {end} bytes")
+    print(f"collab shard: shard 0 of {SHARDS} of ft3's {key} "
+          f"{value.shape}: {len(got)} bytes "
+          f"({'the whole tensor: replicated' if cuts is None else 'its rows'}"
+          f") in {shard_s:.3f} s, equal to the checkout ({card})", flush=True)
+
+
+def collab_serving(hub_root, url, card):
+    """Step 6: a pool over the hub's own directory, a router with
+    ``prod=branch:base`` and a watcher polling the hub. Returns (app,
+    server, thread, watcher, host pool)."""
+    import numpy as np
+
+    from repro_torch.serve import (HubLineageSource, LineageWatcher,
+                                   ModelPool, Router, ServeApp,
+                                   start_in_thread)
+    from repro_torch.store import ArtifactStore
+
+    pool = ModelPool(ArtifactStore(root=hub_root, chunk_threshold=0),
+                     verify=True)
+    host = ModelPool(ArtifactStore(root=hub_root, chunk_threshold=0,
+                                   backend="ref"), backend="ref")
+    router = Router(pool, ["prod=branch:base"])
+    watcher = LineageWatcher(HubLineageSource(url, token=HUB_TOKEN), router,
+                             interval_s=0.2)
+    app = ServeApp(router, pool, watcher)
+    server, thread = start_in_thread(app)
+    chain0 = wrappers()["chain_apply"].launches
+    t0 = time.perf_counter()
+    first = watcher.poll()
+    poll_s = time.perf_counter() - t0
+    prod = router.endpoints["prod"]
+    if first["endpoints"]["prod"].get("node") != "ft4":
+        fail(f"collab serving: prod resolved to {first['endpoints']}")
+    with prod.lease() as view:
+        want = host.get(view.ref)
+        _same_bits("collab serving: the card's view", view.params,
+                   want.params)
+        if not np.array_equal(view.probe(), want.probe()):
+            fail("collab serving: the probe differs from the host view's")
+    print(f"collab serving: watcher on the hub resolved prod to ft4 in "
+          f"{poll_s:.3f} s (view build {prod.last_swap_s:.3f} s, chain_apply "
+          f"launches {wrappers()['chain_apply'].launches - chain0}); view "
+          f"and probe equal the host's bit for bit ({card})", flush=True)
+    return app, server, thread, watcher, host
+
+
+def collab_merge(cfg, workdir, clone_a, clone_b, tip, url, service, gen,
+                 card):
+    """Step 7: clone A re-commits the tip with its encoder trunk edited and
+    pushes; clone B re-commits it with embed/tok edited and pulls, which
+    auto-merges the two on the card; the same pull on a copy of B through
+    a host store must write the same merged ref; B pushes the merge.
+    Returns the merged ref."""
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import to_artifact
+    from repro_torch.core import POSSIBLE_CONFLICT, LineageGraph
+    from repro_torch.kernels.ref import quant_scale
+    from repro_torch.remote import HttpTransport, RemoteState, pull, push
+    from repro_torch.store import ArtifactStore
+
+    trunk = sorted(k for k in tip if k.startswith("layers/"))
+    intended = {"a": edit_of(tip, trunk, gen, layers=cfg.n_layers // 2),
+                "b": edit_of(tip, ["embed/tok"], gen)}
+    graphs = {}
+    t0 = time.perf_counter()
+    for side, dest in (("a", clone_a), ("b", clone_b)):
+        g = LineageGraph(path=dest, store=ArtifactStore(root=dest,
+                                                        chunk_threshold=0))
+        g.add_node(to_artifact(intended[side], cfg.name), "ft4")
+        graphs[side] = g
+    torch.cuda.synchronize()
+    commit_s = time.perf_counter() - t0
+    rep = push(graphs["a"], HttpTransport(url, token=HUB_TOKEN),
+               state=RemoteState(clone_a, "origin"))
+    if not rep.published:
+        fail(f"collab merge: clone A's push was refused: "
+             f"{rep.merge.to_json()}")
+    host_b = clone_b + "-host"
+    shutil.copytree(clone_b, host_b)
+    merged = {}
+    seconds = {}
+    for label, path, kw in (("card", clone_b, {}),
+                            ("host", host_b, {"backend": "ref"})):
+        g = (graphs["b"] if label == "card" else LineageGraph(
+            path=path, store=ArtifactStore(root=path, chunk_threshold=0,
+                                           **kw)))
+        t0 = time.perf_counter()
+        rep = pull(g, HttpTransport(url, token=HUB_TOKEN),
+                   state=RemoteState(path, "origin"))
+        if label == "card":
+            torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        outcome = next((o for o in rep.merge.outcomes if o.name == "ft4"),
+                       None)
+        # paper-bert's layer graph is a chain, so the two edits are
+        # dependent changes; with no tests to run, the auto-merge classes
+        # them POSSIBLE_CONFLICT (Figure 2), in the reference as here, and
+        # commits the merged model. CONFLICT would keep B's model.
+        if rep.merge.status != POSSIBLE_CONFLICT or outcome is None or \
+                outcome.detail != AUTO_MERGED:
+            fail(f"collab merge ({label}): {rep.merge.status}, "
+                 f"{rep.merge.to_json()}")
+        merged[label] = g.nodes["ft4"].artifact_ref
+    if merged["card"] != merged["host"]:
+        fail(f"collab merge: the card's merged ref {merged['card']} differs "
+             f"from the host's {merged['host']}")
+    ref = merged["card"]
+    store = ArtifactStore(root=clone_b, chunk_threshold=0)
+    out = dict(store.materialize_artifact(ref).params)
+    _hash_exact("collab merge", store, ref, out)
+    bound = float(np.float32(quant_scale(EPS)))
+    worst = {}
+    for k, v in out.items():
+        side = "a" if k in trunk else "b"
+        err = float(np.abs(np.asarray(v, np.float64)
+                           - intended[side][k]).max())
+        worst[side] = max(worst.get(side, 0.0), err)
+        if err > bound:
+            fail(f"collab merge: {k} is {err} from clone {side.upper()}'s "
+                 f"edit (bound {bound})")
+    rep = push(graphs["b"], HttpTransport(url, token=HUB_TOKEN),
+               state=RemoteState(clone_b, "origin"))
+    if not rep.published:
+        fail(f"collab merge: clone B's push of the merge was refused: "
+             f"{rep.merge.to_json()}")
+    _fsck_clean("collab merge: the hub", service.fsck())
+    print(f"collab merge: A (encoder trunk, first {cfg.n_layers // 2} "
+          f"layers) and B (embed/tok) re-committed in {commit_s:.3f} s; B's "
+          f"pull auto-merged ({POSSIBLE_CONFLICT}: dependent changes, no "
+          f"tests) in {seconds['card']:.3f} s on "
+          f"the card, {seconds['host']:.3f} s on the host, same merged ref; "
+          f"merged tip hash-exact, max |merged - edit| A {worst['a']} B "
+          f"{worst['b']} (bound {bound}); B pushed it, hub fsck clean "
+          f"({card})", flush=True)
+    return ref
+
+
+def collab_swap(app, server, watcher, host, ref, card):
+    """Step 8: a client keeps predicting while the watcher swaps prod to
+    the merged ref; the new view is built on the card and equals the
+    host's bit for bit."""
+    errors, latencies, last = [], [], {}
+    stop = threading.Event()
+
+    def client():
+        while not stop.is_set():
+            try:
+                t, out = _http(server.url + "/api/predict/prod", {})
+                latencies.append(t)
+                last.update(out)
+            except Exception as exc:  # noqa: BLE001 — any drop fails
+                errors.append(repr(exc))
+
+    hammer = threading.Thread(target=client)
+    hammer.start()
+    chain0 = wrappers()["chain_apply"].launches
+    t0 = time.perf_counter()
+    try:
+        report = watcher.poll()
+    finally:
+        swap_s = time.perf_counter() - t0
+        time.sleep(0.5)
+        stop.set()
+        hammer.join(timeout=60)
+    chain = wrappers()["chain_apply"].launches - chain0
+    prod = app.router.endpoints["prod"]
+    if not report["changed"] or prod.current_ref != ref or chain == 0:
+        fail(f"collab swap: changed={report['changed']}, prod at "
+             f"{prod.current_ref} (want {ref}), chain_apply launches {chain}")
+    host.store.reload()
+    want = host.get(ref)
+    with prod.lease() as view:
+        _same_bits("collab swap: the card's view", view.params, want.params)
+    probe = want.probe()
+    if errors or last.get("ref") != ref or \
+            last.get("y") != [float(v) for v in probe.ravel()[:16]]:
+        fail(f"collab swap: {len(errors)} failed requests {errors[:3]}, "
+             f"last answer {last.get('ref')}")
+    print(f"collab swap: prod swapped to the merged ref in {swap_s:.3f} s "
+          f"(view build {prod.last_swap_s:.3f} s on the card, chain_apply "
+          f"launches {chain}); view equals the host's bit for bit; "
+          f"{len(latencies)} predicts during the swap, {len(errors)} failed: "
+          f"{_quantiles_ms(latencies)} ({card})", flush=True)
+
+
+def collab_path(cfg, workdir, card, seed):
+    """Phase 4e. Returns the launch counts of its run."""
+    import torch
+
+    from repro_torch.core import LineageGraph
+    from repro_torch.remote import clone
+    from repro_torch.remote.http import TOKEN_ENV
+    from repro_torch.store import ArtifactStore
+
+    root = os.path.join(workdir, "whole")
+    graph = LineageGraph(path=root, store=ArtifactStore(
+        root=root, chunk_threshold=0))
+    gen = torch.Generator().manual_seed(seed + 4)
+    saved = os.environ.get(TOKEN_ENV)
+    os.environ[TOKEN_ENV] = HUB_TOKEN   # what clone's transport sends
+    zero_launches()
+    t0 = time.perf_counter()
+    hub_root = os.path.join(workdir, "hub")
+    service, server, thread = _hub(hub_root)
+    app = None
+    try:
+        url = server.url
+        clone_a, out = collab_push_clone(graph, root, workdir, url, service,
+                                         card)
+        clone_b = os.path.join(workdir, "clone-b")
+        clone(url, clone_b)
+        collab_shallow_and_shard(workdir, clone_a, out, url, card)
+        app, sserver, sthread, watcher, host = collab_serving(hub_root, url,
+                                                              card)
+        ref = collab_merge(cfg, workdir, clone_a, clone_b, out["ft4"], url,
+                           service, gen, card)
+        collab_swap(app, sserver, watcher, host, ref, card)
+        torch.cuda.synchronize()
+    finally:
+        if app is not None:
+            sserver.shutdown()
+            sserver.server_close()
+            sthread.join(timeout=10)
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+        if saved is None:
+            os.environ.pop(TOKEN_ENV, None)
+        else:
+            os.environ[TOKEN_ENV] = saved
+    launches = read_launches("collab")
+    print(f"collab: phase took {time.perf_counter() - t0:.3f} s, launches "
+          f"{json.dumps(launches)} ({card})", flush=True)
+    missing = [k for k in ("dequant_apply", "chain_apply", "snapshot_fused")
+               if launches[k] == 0]
+    if missing:
+        fail(f"collab launched no {', '.join(missing)} kernel")
     return launches
 
 
@@ -2961,6 +3411,7 @@ def main() -> int:
     try:
         launches = {"lineage": main_path(cfg, params, workdir, card)}
         launches["serving"] = serving_path(cfg, workdir, args.seed)
+        launches["collab"] = collab_path(cfg, workdir, card, args.seed)
         launches["lineage_f16"] = f16_path(cfg, params, workdir, card)
         launches["lineage_bf16"] = bf16_path(workdir, card, args.seed)
         launches["lineage_vlm"] = vlm_path(workdir, card, args.seed)
@@ -3062,8 +3513,7 @@ def main() -> int:
                   f"{t['library_eager_ms' + tag]:.4f}"
                   + (f", backend {t['library_backend' + tag]}"
                      if 'library_backend' + tag in t else "") + ")"
-                  + (f", plain {t['plain_ms' + tag]:.4f}"
-                     if 'plain_ms' + tag in t else ""), flush=True)
+                  + f", plain {t['plain_ms' + tag]:.4f}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -61,6 +61,14 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel could not be built or launched, or there is no card.
+
+    Its own class so that code which classifies failures (a pull's
+    three-way auto-merge) can tell the kernel layer's errors from its own
+    and let them propagate."""
+
+
 def build_dir() -> Path:
     env = os.environ.get("REPRO_TORCH_BUILD_DIR")
     if env:
@@ -75,7 +83,7 @@ def nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     path = os.path.join(home, "bin", "nvcc")
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: put the CUDA toolkit's bin on "
+        raise KernelError("nvcc not found: put the CUDA toolkit's bin on "
                            "PATH or set CUDA_HOME")
     return path
 
@@ -119,7 +127,7 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
         else:
             os.replace(tmp, target)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise KernelError("nvcc failed for " + "\n".join(failed))
     return seconds
 
 
@@ -148,7 +156,7 @@ def launch(name: str, fn: str, device: torch.device, *args) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, fn)(*args, device.index, stream)
     if err:
-        raise RuntimeError(f"{fn}: CUDA error {err} "
+        raise KernelError(f"{fn}: CUDA error {err} "
                            f"({lib.mgit_error_string(err).decode()})")
 
 

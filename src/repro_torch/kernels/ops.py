@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.common import bf16
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.build import KernelError
 from repro_torch.kernels.chain_apply import chain_apply_flat
 from repro_torch.kernels.delta_quantize import (delta_quantize_flat,
                                                 dequant_apply_flat)
@@ -41,7 +42,7 @@ _DEVICES = {"cuda": "cuda", "ref": "cpu"}
 def default_backend() -> str:
     """``"cuda"``; raises when PyTorch sees no CUDA device."""
     if not torch.cuda.is_available():
-        raise RuntimeError(
+        raise KernelError(
             "no CUDA device: the storage kernels run on the card; pass "
             "backend='ref' to ask for the plain torch versions on the CPU")
     return "cuda"

@@ -1,7 +1,7 @@
 """HTTP surface of the serving daemon (DESIGN.md §13.4).
 
-Same shape as the hub's route layer (the reference's ``hub/routes.py``): a
-dependency-free stdlib ``ThreadingHTTPServer`` codec — one OS thread per in-flight
+Same shape as the hub's route layer (``repro_torch.hub.routes``): a dependency-
+free stdlib ``ThreadingHTTPServer`` codec — one OS thread per in-flight
 request, which is exactly what the endpoint lease/drain accounting was
 designed for (requests hold leases concurrently; swaps move a pointer).
 
@@ -16,16 +16,14 @@ Endpoints (all JSON):
     POST /api/refresh             force one watcher poll (CI/tests: no
                                   need to wait out the poll interval)
 
-Ported from the reference package's ``repro/serve/routes.py``; ``_safe_id``
-and ``GZIP_FLOOR`` are copied from its ``repro/hub/routes.py`` and
-``repro/remote/http.py``.
+Copied from the reference package's ``repro/serve/routes.py``; only the
+imports differ.
 """
 
 from __future__ import annotations
 
 import gzip
 import json
-import re
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -34,29 +32,19 @@ from urllib.parse import unquote, urlsplit
 
 import numpy as np
 
+from repro_torch.hub.routes import _safe_id
 from repro_torch.obs import REGISTRY, Histogram, render_prometheus, span
+from repro_torch.remote.http import GZIP_FLOOR
 from repro_torch.serve.pool import BitIdentityError, ModelPool
 from repro_torch.serve.router import EndpointUnavailable, Router
 from repro_torch.serve.watch import LineageWatcher
-
-#: JSON bodies/responses below this size skip gzip (header overhead wins)
-GZIP_FLOOR = 256
-
-# endpoint names in a path tail are plain tokens; anything else is hostile.
-# Dot-only names are excluded too ('.'/'..' are directories even without a
-# separator).
-_SAFE_ID_RE = re.compile(r"^[A-Za-z0-9._-]+$")
-
-
-def _safe_id(s: str) -> bool:
-    return bool(_SAFE_ID_RE.match(s)) and set(s) != {"."}
 
 _FIXED_ROUTES = frozenset({"/api/ping", "/api/endpoints", "/api/stats",
                            "/api/metrics", "/api/refresh"})
 
 
 def route_family(path: str) -> str:
-    """Bounded-cardinality route label."""
+    """Bounded-cardinality route label (mirrors hub.routes.route_family)."""
     if path.startswith("/api/predict/"):
         return "/api/predict/:endpoint"
     return path if path in _FIXED_ROUTES else "other"

@@ -7,17 +7,15 @@ Two sources, one contract — ``fetch() -> (payload, etag)``:
   protocol uses (``lineage_etag``), so a local commit and a hub publish of
   the same document produce the same etag;
 * :class:`HubLineageSource` polls the hub's ETag'd ``GET /api/lineage``
-  through the HTTP transport; that transport arrives with slice E of the
-  port, and until then the source raises ``NotImplementedError``.
+  through the existing :class:`HttpTransport` — no new wire protocol.
 
 :class:`LineageWatcher` compares etags and only re-resolves the router on
 an actual change; ``poll()`` is also callable directly (the serve HTTP
 layer exposes it as ``POST /api/refresh`` so tests and CI don't have to
 wait out the poll interval).
 
-Ported from the reference package's ``repro/serve/watch.py``;
-``ETAG_ABSENT`` and ``lineage_etag`` are copied from its
-``repro/remote/transport.py``.
+Copied from the reference package's ``repro/serve/watch.py``; only the
+imports differ.
 """
 
 from __future__ import annotations
@@ -28,29 +26,11 @@ import os
 import threading
 from typing import Any, Dict, Optional, Tuple
 
-from repro_torch.common.hashing import bytes_hash
 from repro_torch.obs import REGISTRY
+from repro_torch.remote.transport import ETAG_ABSENT, lineage_etag
 from repro_torch.serve.router import Router
 
 logger = logging.getLogger("repro_torch.serve.watch")
-
-#: etag of an absent lineage document (fresh remote, nothing published yet)
-ETAG_ABSENT = "absent"
-
-#: the ROADMAP slice that ports the remote transports
-HUB_ITEM = "slice E: collaboration and diagnostics (remote/http.py)"
-
-
-def lineage_etag(payload: Optional[Dict]) -> str:
-    """Version tag of a lineage document: content hash of canonical JSON.
-
-    A pure function of the payload, so every implementation (local file,
-    hub server, client cache) derives the same tag for the same document —
-    the compare-and-swap of a lineage publish never depends on clocks or
-    counters."""
-    if payload is None:
-        return ETAG_ABSENT
-    return bytes_hash(json.dumps(payload, sort_keys=True).encode())[:32]
 
 
 class LocalLineageSource:
@@ -71,9 +51,15 @@ class LocalLineageSource:
 
 class HubLineageSource:
     def __init__(self, url: str, token: Optional[str] = None) -> None:
-        raise NotImplementedError(
-            f"polling a hub needs the HTTP transport, which waits for the "
-            f"ROADMAP item '{HUB_ITEM}'")
+        from repro_torch.remote.http import HttpTransport
+        self.url = url
+        self.transport = HttpTransport(url, token=token)
+
+    def fetch(self) -> Tuple[Optional[Dict[str, Any]], str]:
+        return self.transport.fetch_lineage_versioned()
+
+    def describe(self) -> str:
+        return f"hub:{self.url}"
 
 
 class LineageWatcher:

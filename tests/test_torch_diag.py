@@ -6,8 +6,9 @@ lineages (built from the same numpy seeds, committed through a
 identity hashes, ``t_`` ledger keys and records, memo hits, blame
 verdicts, gate decisions and ``gate_report`` rows must be equal, and the
 port's ``fsck`` must be clean with ledger entries in its CAS. The two
-cases of ``tests/test_diag.py`` that push to a remote wait for the port's
-remote slice.
+cases of ``tests/test_diag.py`` that push to a remote push through each
+package's own remote sync (the port's directory transport and clone on a
+``backend="ref"`` store) and must select, skip and publish the same nodes.
 """
 
 import json
@@ -18,11 +19,13 @@ import pytest
 
 import repro.core as rcore
 import repro.diag as rdiag
+import repro.remote as rremote
 from repro.store import ArtifactStore as RefStore
 from repro.store.cas import ledger_key as ref_ledger_key
 
 import repro_torch.core as tcore
 import repro_torch.diag as tdiag
+import repro_torch.remote as tremote
 from repro_torch.store import ArtifactStore as PortStore
 from repro_torch.store.cas import ledger_key
 
@@ -30,10 +33,17 @@ from helpers import finetune_like, l2_test
 from torch_helpers import make_chain_model
 
 REF = types.SimpleNamespace(name="ref", core=rcore, diag=rdiag,
-                            store=lambda root: RefStore(root=root))
+                            store=lambda root: RefStore(root=root),
+                            remote=rremote, local=rremote.LocalTransport,
+                            clone=rremote.clone)
 PORT = types.SimpleNamespace(name="port", core=tcore, diag=tdiag,
                              store=lambda root: PortStore(root=root,
-                                                          backend="ref"))
+                                                          backend="ref"),
+                             remote=tremote,
+                             local=lambda url: tremote.LocalTransport(
+                                 url, backend="ref"),
+                             clone=lambda url, dest: tremote.clone(
+                                 url, dest, backend="ref"))
 
 
 def broken_flag_test(model) -> float:
@@ -463,3 +473,69 @@ def test_gate_inherited_failure_matches_reference(tmp_path):
     ref, port = both(run, tmp_path)
     assert canon(port) == canon(ref)
     assert port["passed"]
+
+
+def test_push_excludes_quarantined_nodes(tmp_path):
+    def run(pkg, root):
+        src = f"{root}/src"
+        g = pkg.core.LineageGraph(path=src, store=pkg.store(src))
+        base = make_chain_model(pkg.core, seed=0)
+        g.add_node(base, "good")
+        bad = finetune_like(base, seed=1)
+        g.add_edge("good", "bad")
+        g.add_node(bad, "bad")
+        pkg.diag.quarantine_node(g, "bad", reason="manual")
+
+        remote_dir = f"{root}/remote"
+        report = pkg.remote.push(g, pkg.local(remote_dir))
+        assert report.quarantined_skipped == ["bad"]
+        assert "bad" not in report.selected_nodes
+
+        dest = f"{root}/clone"
+        pkg.clone(remote_dir, dest)
+        g2 = pkg.core.LineageGraph(path=dest, store=pkg.store(dest))
+        assert "good" in g2.nodes and "bad" not in g2.nodes
+        assert g2.store.fsck([n.artifact_ref for n in g2.nodes.values()
+                              if n.artifact_ref])["ok"]
+
+        report2 = pkg.remote.push(g, pkg.local(remote_dir),
+                                  include_quarantined=True)
+        assert report2.quarantined_skipped == []
+        assert "bad" in report2.selected_nodes
+        return (report.to_json(), report2.to_json(),
+                {n: g2.nodes[n].artifact_ref for n in sorted(g2.nodes)})
+    ref, port = both(run, tmp_path)
+    assert canon(port) == canon(ref)
+
+
+def test_quarantine_after_push_does_not_delete_from_remote(tmp_path):
+    """A node pushed earlier then quarantined reads as out of scope on the
+    next push, not as a local deletion of the remote's copy."""
+    def run(pkg, root):
+        src = f"{root}/src"
+        g = pkg.core.LineageGraph(path=src, store=pkg.store(src))
+        base = make_chain_model(pkg.core, seed=0)
+        g.add_node(base, "good")
+        g.add_edge("good", "bad")
+        g.add_node(finetune_like(base, seed=1), "bad")
+
+        remote_dir = f"{root}/remote"
+        transport = pkg.local(remote_dir)
+        state = pkg.remote.RemoteState(src, "origin")
+        pkg.remote.remote_add(src, "origin", remote_dir)
+        first = pkg.remote.push(g, transport, state=state)
+        assert set(first.selected_nodes) == {"good", "bad"}
+
+        pkg.diag.quarantine_node(g, "bad", reason="regression found post-push")
+        second = pkg.remote.push(g, transport, state=state)
+        assert second.quarantined_skipped == ["bad"]
+        remote_nodes = {n["name"] for n in transport.fetch_lineage()["nodes"]}
+        assert remote_nodes == {"good", "bad"}
+        third = pkg.remote.push(g, transport, state=state)
+        assert {n["name"] for n in transport.fetch_lineage()["nodes"]} \
+            == {"good", "bad"}
+        assert third.published
+        return ([r.to_json() for r in (first, second, third)],
+                transport.fetch_lineage())
+    ref, port = both(run, tmp_path)
+    assert canon(port) == canon(ref)

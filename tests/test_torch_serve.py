@@ -720,8 +720,75 @@ def test_local_watcher_detects_publish(repo):
     assert r3["changed"] and r3["endpoints"]["prod"]["node"] == "main@v2"
     assert watcher.stats()["changes"] == 2
     assert lineage_etag(None) == ref_lineage_etag(None) == "absent"
-    with pytest.raises(NotImplementedError, match="slice E"):
-        HubLineageSource("http://localhost:1")
+    # the hub source builds its transport without touching the network
+    source = HubLineageSource("http://localhost:1")
+    assert source.describe() == "hub:http://localhost:1"
+
+
+def test_serve_shares_the_hub_and_remote_objects():
+    """serve keeps no copies: ``_safe_id`` is the hub's, ``GZIP_FLOOR`` the
+    HTTP transport's, the etag functions the remote transport's."""
+    import repro_torch.hub.routes as hub_routes
+    import repro_torch.remote.http as remote_http
+    import repro_torch.remote.transport as remote_transport
+    import repro_torch.serve.routes as serve_routes
+    import repro_torch.serve.watch as serve_watch
+    assert serve_routes._safe_id is hub_routes._safe_id
+    assert serve_routes.GZIP_FLOOR is remote_http.GZIP_FLOOR
+    assert serve_watch.lineage_etag is remote_transport.lineage_etag
+    assert serve_watch.ETAG_ABSENT is remote_transport.ETAG_ABSENT
+    assert not hasattr(serve_watch, "HUB_ITEM")
+
+
+def test_hub_watcher_swaps_prod_when_a_push_lands(repo, tmp_path):
+    """A ``LineageWatcher`` on ``HubLineageSource`` over a port hub (token
+    auth, the pool over the hub's own directory): the first poll resolves
+    ``prod`` to the branch head with the hub's etag, an unchanged hub is no
+    change, and a push of main@v2 swaps ``prod`` to it on the next poll;
+    its view equals a view of the pushing repository's bit for bit. A
+    wrong token fails the poll."""
+    from repro_torch.hub import HubService
+    from repro_torch.hub import start_in_thread as start_hub
+    from repro_torch.remote import HttpTransport, RemoteState, push
+    root, store, g, base = repo
+    service = HubService(str(tmp_path / "hub"), token="tok", backend="ref")
+    server, _ = start_hub(service)
+    try:
+        hub = HttpTransport(server.url, token="tok")
+        push(g, hub, state=RemoteState(root, "origin"))
+        pool = _pool(ArtifactStore(root=service.root, backend="ref"))
+        router = Router(pool, ["prod=branch:main"])
+        watcher = LineageWatcher(HubLineageSource(server.url, token="tok"),
+                                 router, interval_s=0.01)
+        assert watcher.source.describe() == f"hub:{server.url}"
+        first = watcher.poll()
+        assert first["changed"] and first["endpoints"]["prod"]["node"] == "main"
+        assert first["etag"] == lineage_etag(g.to_payload()) \
+            == service.default.lineage()[1]
+        assert watcher.poll()["changed"] is False
+        _publish_v2(g, base)
+        push(g, hub, state=RemoteState(root, "origin"))
+        swapped = watcher.poll()
+        assert swapped["changed"]
+        assert swapped["endpoints"]["prod"]["status"] == "swapped"
+        assert swapped["endpoints"]["prod"]["node"] == "main@v2"
+        ref = g.nodes["main@v2"].artifact_ref
+        assert router.endpoints["prod"].current_ref == ref
+        with router.endpoints["prod"].lease() as view:
+            want = _pool(store).get(ref)
+            for k, v in want.params.items():
+                np.testing.assert_array_equal(
+                    np.asarray(view.params[k]).view(np.uint8),
+                    np.asarray(v).view(np.uint8))
+            np.testing.assert_array_equal(view.probe(), want.probe())
+        assert watcher.stats()["changes"] == 2
+        intruder = LineageWatcher(HubLineageSource(server.url, token="nope"),
+                                  router)
+        with pytest.raises(PermissionError):
+            intruder.poll()
+    finally:
+        server.shutdown()
+        server.server_close()
 
 
 def _call(url, body=None):

@@ -204,6 +204,8 @@ def test_port_sources_import_no_jax_and_no_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
     assert PORT / "diag" / "runner.py" in files
+    assert PORT / "remote" / "sync.py" in files
+    assert PORT / "hub" / "routes.py" in files
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files
                  for m in FORBIDDEN_IMPORT.finditer(f.read_text())]
@@ -236,3 +238,8 @@ def test_every_port_module_imports_with_jax_blocked():
                                               "auto")} <= names
     assert {f"repro_torch.diag.{m}" for m in ("runner", "transfer", "gate",
                                               "blame")} <= names
+    # and the collaboration layer
+    assert {f"repro_torch.remote.{m}" for m in (
+        "transport", "negotiate", "journal", "http", "sync")} <= names
+    assert {f"repro_torch.hub.{m}" for m in (
+        "auth", "app", "gc", "routes", "replica")} <= names
