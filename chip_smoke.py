@@ -83,6 +83,29 @@ exits non-zero on failure:
    it (a view built on the card through chain_apply, equal to the host's
    bit for bit, no failed request). It fails unless dequant_apply,
    chain_apply and snapshot_fused each launched;
+4f. the mgit CLI, on phase 4's repository as 4e leaves it (six models):
+   commands run in this process through ``repro_torch.cli.main`` with
+   their output parsed, on the card (``--backend ref`` where the host is
+   the comparison): ``log`` lists the six nodes, ``show ft3`` gives the
+   manifest's depth, ``param ft3 embed/tok`` is float32 with phase 4's
+   float64 norm, ``stats`` the repository's compression ratio, ``checkout``
+   of ft3 and task-head phase 4's params and bytes, and a
+   ``python -m repro_torch.cli checkout ft3`` subprocess prints the same;
+   ``diff ft2 ft3`` equals ``--backend ref``'s; a ``serve`` daemon
+   (``prod=node:ft3 canary=node:task-head --port 0``, a subprocess)
+   answers ``/api/predict`` with host-built views' probes bit for bit, its
+   pool fusing on the card, no failed request; a ``hub serve`` daemon on an
+   empty directory takes ``remote add`` + ``push``, a ``clone`` checks out
+   ft3 as phase 4's and ``pull``s nothing, ``hub stats``/``hub gc``
+   answer, and ``remove-node task-head`` + ``gc`` in the clone reclaims
+   bytes; ``diag run ft3 --builtin`` executes, runs again from the ledger
+   alone (hit ratio 1.0) and gives the RMS of ``--backend ref --force``;
+   ``diag history``, ``blame`` (pass) and ``gate-report`` (``[]``);
+   ``fsck`` is clean; ``train`` at d_model 768, 2 layers, committing every
+   2 steps, resumes at step 6 in a second invocation, and a lossy-tier run
+   keyframes every 2 commits; ``obs trace`` writes spans. Each command's
+   seconds are printed; it fails unless chain_apply, dequant_apply and
+   fingerprint each launched;
 4c. float16: base -> ft1 -> ft2 plus task-head, every tensor float16, is
    committed and checked out through the card's store; its manifest refs
    and checkouts must equal a host (``backend="ref"``) store's, and a
@@ -91,14 +114,14 @@ exits non-zero on failure:
    flash kernel), two rows held against the host engine on the same
    weights in f32;
 4d. bfloat16: a lineage of full-width qwen3-0.6b (vocab 151,936, depth
-   cut to ``BF16_LAYERS`` = 14 of its 28 layers for time, 376 M
+   cut to ``BF16_LAYERS`` = 2 of its 28 layers for time, 187 M
    parameters) in its own dtype, random weights from the
    seed, base -> ft1 -> ft2 (noise drawn in f32 and narrowed) plus
    task-head (ft1 with the last layer of layers/mlp/w_out re-drawn: an
    int8-overflowing delta), committed and checked out through the card's
    store (bf16 delta_quantize and dequant_apply), hash-exact, within the
    quantization step of the live weights, fsck clean; the lineage cut to
-   layers 0, 1, 2 and 13 (``BF16_CUT_LAYERS``, embed/tok left out: cut for
+   layers 0 and 1 (``BF16_CUT_LAYERS``, embed/tok left out: cut for
    time) committed through a card store and a host store with refs and
    bits equal, and equal to the whole checkout's layers; a ModelPool view
    of ft2 on the card equal to the checkout;
@@ -139,8 +162,9 @@ exits non-zero on failure:
    (host work, no kernel): bit-identical checkouts and a clean fsck;
 6. continuous checkpointing: ``Trainer`` trains full-width paper-bert (f32,
    batch 8, sequence 128; ``CHECKPOINT_LAYERS`` of its 12 layers) on the
-   card with its default exact-tier
-   ``CheckpointManager`` committing every 2 steps: 6 steps in runs of 2
+   card with an exact-tier ``CheckpointManager`` on the store it opens
+   by default but for the codec (``exact_store``) committing every 2
+   steps: 6 steps in runs of 2
    (each waits for its commit: 3 commits), then one ``run(6)``, whose
    saves come faster than the commits, so at least one coalesces. It
    saves the unchanged state once more (every leaf of 64 KiB or more must
@@ -165,11 +189,23 @@ exits non-zero on failure:
    of base must merge to their picks bit for bit, two overlapping ones
    conflict, and ``module_diff`` must agree on card and host checkouts;
    every new node checks out hash-exact and equal to the host's, with a
-   clean fsck over the models and the test ledger.
+   clean fsck over the models and the test ledger;
+10. the examples: each of ``examples/torch/{quickstart,serve_batched,
+   federated,finetune_cascade}.py`` runs in this process as a script at
+   the reference's defaults, on the card, and must exit 0 and print the
+   reference's lines (quickstart's figures are the reference's own;
+   finetune_cascade rebuilds task0..2@v2 at a storage ratio above 1). It
+   fails unless snapshot_fused launched, and flash_attention in
+   serve_batched.
 
-Phases 4, 4b, 4e, 4c, 4d, 8, 9, 6 and 7 (in that order) each zero every
-kernel's launch count (and its count by operand dtype) just before they
-drive their path and read it just after. The line before last is one
+Phases 4, 4b, 4e, 4f, 4c, 4d, 8, 9, 6, 7 and 10 (in that order; 5 runs
+after 9) each zero every kernel's launch count (and its count by operand
+dtype) just before they drive their path and read it just after; the
+launches of the daemons' and the module run's subprocesses are not
+counted. Each phase's seconds are printed. The stores this script commits
+through use the store's zlib codec at level 1 (``FAST_CODEC``) in place of
+its default LZMA, cut for time; the CLI's (4f) and the examples' (10) keep
+the default. The line before last is one
 JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -188,6 +224,7 @@ import tempfile
 import threading
 import time
 
+START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
@@ -203,6 +240,12 @@ CHECKOUT = ("ft3", "task-head")
 # more when phases 8 and 9 came
 PHASE5_LAYERS = 1
 CHECKPOINT_LAYERS = 1
+# the codec of every store this script commits through, cut for time: zlib
+# at level 1 in place of the default LZMA (preset 0). Their commits and
+# checkouts are mostly host compression of what the kernels quantized, and
+# no check depends on the codec. The CLI (4f) and the examples (10) open
+# their stores as a user does, with LZMA.
+FAST_CODEC = dict(codec="zlib", lzma_preset=1)
 
 
 def fail(msg: str) -> None:
@@ -1003,12 +1046,13 @@ def make_lineage(cfg, seed: int):
 
 def commit_lineage(root, arch, params, **store_kw):
     """Commit the lineage (the nodes of ``NODES`` that ``params`` holds)
-    through LineageGraph + ArtifactStore; return the store."""
+    through LineageGraph + ArtifactStore (``FAST_CODEC``); return the
+    store."""
     from repro_torch.convert import to_artifact
     from repro_torch.core import LineageGraph
     from repro_torch.store import ArtifactStore
 
-    store = ArtifactStore(root=root, **store_kw)
+    store = ArtifactStore(root=root, **FAST_CODEC, **store_kw)
     graph = LineageGraph(path=root, store=store)
     graph.add_node(to_artifact(params["base"], arch), "base")
     for parent, child in (("base", "ft1"), ("ft1", "ft2"), ("ft2", "ft3")):
@@ -1112,7 +1156,9 @@ def read_launches(path=None):
 
 
 def main_path(cfg, params, workdir, card):
-    """Phase 4: whole-tensor lineage on the card. Returns launch counts."""
+    """Phase 4: whole-tensor lineage on the card. Returns the launch
+    counts and, for phase 4f, the checkouts' facts: {node: (params,
+    bytes)} and the float64 norm of ft3's embed/tok."""
     import torch
 
     root = os.path.join(workdir, "whole")
@@ -1135,7 +1181,13 @@ def main_path(cfg, params, workdir, card):
                if n == 0 and k not in ("fingerprint", "flash_attention")]
     if missing:
         fail(f"main path launched no {', '.join(missing)} kernel")
-    return launches
+    import numpy as np
+    facts = {"checkouts": {n: (len(t), sum(np.asarray(v).nbytes
+                                           for v in t.values()))
+                           for n, t in out.items()},
+             "embed_norm": float(np.linalg.norm(
+                 np.asarray(out["ft3"]["embed/tok"], np.float64)))}
+    return launches, facts
 
 
 def chunked_path(cfg, params, workdir):
@@ -1405,16 +1457,18 @@ def serve_view(label, cfg, flat, gen, n_tokens, host_dtype=None, *,
 # ---------------------------------------------------------------------------
 
 BF16_ARCH = "qwen3-0.6b"
-# depth cut for time when phase 4e came (the whole script took 1,124 s at
-# all 28 layers); the width, embed/tok and the head stay whole
-BF16_LAYERS = 14
+# depth cut for time: to 14 when phase 4e came (the whole script took
+# 1,124 s at all 28 layers), to 2 when phases 4f and 10 came (1,088 s at
+# 4, where the phase took 113.8 s); the width, embed/tok and the head stay
+# whole
+BF16_LAYERS = 2
 BF16_NODES = ("base", "ft1", "ft2", "task-head")
 BF16_CHECKOUT = ("ft2", "task-head")
 # the layers of the lineage that also go through a host store (cut for
 # time: the host store's commit and checkout of all 28 took 145 s): the
-# first three and the last, whose w_out task-head re-draws (its int32
-# delta); embed/tok is left out
-BF16_CUT_LAYERS = (0, 1, 2, BF16_LAYERS - 1)
+# first and the last, whose w_out task-head re-draws (its int32 delta);
+# embed/tok is left out
+BF16_CUT_LAYERS = (0, BF16_LAYERS - 1)
 # finetune noise, drawn in f32 and narrowed: it must exceed the weights'
 # bf16 ulp (about 1.2e-4 at the 0.03 of a 1024-wide layer) or the children
 # round back onto their parents
@@ -2055,7 +2109,7 @@ def serve_http(cfg, root, refs, pool, gen):
         t0 = time.perf_counter()
         view = pool.get(refs["ft3"])
         ft4 = finetune(view.params, 6e-5, gen)
-        writer = ArtifactStore(root=root, chunk_threshold=0)
+        writer = ArtifactStore(root=root, chunk_threshold=0, **FAST_CODEC)
         graph = LineageGraph(path=root, store=writer, autosave=False)
         graph.add_node(None, "ft4", model_type=cfg.name)
         graph.add_version_edge("ft3", "ft4")
@@ -2508,8 +2562,8 @@ def collab_merge(cfg, workdir, clone_a, clone_b, tip, url, service, gen,
     graphs = {}
     t0 = time.perf_counter()
     for side, dest in (("a", clone_a), ("b", clone_b)):
-        g = LineageGraph(path=dest, store=ArtifactStore(root=dest,
-                                                        chunk_threshold=0))
+        g = LineageGraph(path=dest, store=ArtifactStore(
+            root=dest, chunk_threshold=0, **FAST_CODEC))
         g.add_node(to_artifact(intended[side], cfg.name), "ft4")
         graphs[side] = g
     torch.cuda.synchronize()
@@ -2527,7 +2581,7 @@ def collab_merge(cfg, workdir, clone_a, clone_b, tip, url, service, gen,
                             ("host", host_b, {"backend": "ref"})):
         g = (graphs["b"] if label == "card" else LineageGraph(
             path=path, store=ArtifactStore(root=path, chunk_threshold=0,
-                                           **kw)))
+                                           **FAST_CODEC, **kw)))
         t0 = time.perf_counter()
         rep = pull(g, HttpTransport(url, token=HUB_TOKEN),
                    state=RemoteState(path, "origin"))
@@ -2683,6 +2737,345 @@ def collab_path(cfg, workdir, card, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: the mgit CLI on phase 4's repository
+# ---------------------------------------------------------------------------
+
+# the CLI's checkpointed training run: a toy dense model at paper-bert's
+# width (its vocabulary is the CLI's 64), 2 layers, commits every 2 steps
+CLI_TRAIN = ("--d-model", "768", "--n-layers", "2", "--commit-every", "2")
+DAEMON_START_S = 300     # the longest a daemon may take to print its URL
+
+
+def mgit(argv, seconds):
+    """``repro_torch.cli.main(argv)`` in this process, its standard output
+    captured. Returns (exit code, output); the command's seconds go to
+    ``seconds``."""
+    import contextlib
+    import io
+
+    from repro_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    dt = time.perf_counter() - t0
+    label = " ".join(a for a in argv if not a.startswith("/"))
+    seconds.append((label, dt))
+    print(f"cli: mgit {label}: exit {rc} in {dt:.3f} s", flush=True)
+    return rc, buf.getvalue()
+
+
+def mgit_json(argv, seconds, rc=0):
+    code, out = mgit(argv, seconds)
+    if code != rc:
+        fail(f"cli: mgit {' '.join(argv)} exited {code}: {out[-2000:]}")
+    try:
+        return json.loads(out)
+    except json.JSONDecodeError:
+        fail(f"cli: mgit {' '.join(argv)} printed no JSON: {out[-2000:]}")
+
+
+def module_cli(argv):
+    """The command line of ``python -m repro_torch.cli *argv`` and its
+    environment."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return [sys.executable, "-m", "repro_torch.cli", *argv], env
+
+
+class Daemon:
+    """``python -m repro_torch.cli *argv`` (``hub serve``, ``serve``) in a
+    subprocess; a thread drains its output and picks up the URL it prints
+    on start. ``stop`` kills it."""
+
+    def __init__(self, argv):
+        import re
+        cmd, env = module_cli(argv)
+        self.argv = argv
+        self.lines = []
+        self._url = None
+        self._pattern = re.compile(r" at (http://\S+)")
+        self._done = threading.Event()
+        self.proc = subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdin=subprocess.DEVNULL,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self._thread = threading.Thread(target=self._drain, daemon=True)
+        self._thread.start()
+
+    def _drain(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+            m = self._pattern.search(line)
+            if self._url is None and m:
+                self._url = m.group(1)
+                self._done.set()
+        self._done.set()        # it exited
+
+    def url(self):
+        if not self._done.wait(DAEMON_START_S) or self._url is None:
+            fail(f"cli: mgit {' '.join(self.argv)} printed no URL: "
+                 f"{self.lines[-20:]}")
+        return self._url
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+        self._thread.join(timeout=30)
+
+
+def cli_serve(root, refs, daemon, seconds):
+    """The ``serve`` daemon's answers against host-built views' probes,
+    and its pool's fused applies."""
+    from repro_torch.serve import ModelPool
+    from repro_torch.store import ArtifactStore
+
+    t0 = time.perf_counter()
+    url = daemon.url()
+    seconds.append(("serve: until its URL", time.perf_counter() - t0))
+    host = ModelPool(ArtifactStore(root=root, chunk_threshold=0,
+                                   backend="ref"), backend="ref")
+    latencies, n = [], 0
+    for name, node in (("prod", "ft3"), ("canary", "task-head")):
+        probe = host.get(refs[node]).probe()
+        for _ in range(3):
+            t, out = _http(f"{url}/api/predict/{name}", {})
+            latencies.append(t)
+            n += 1
+            if (out.get("ref") != refs[node]
+                    or out["y"] != [float(v) for v in probe.ravel()[:16]]
+                    or out["mean"] != float(probe.mean())):
+                fail(f"cli serve: {name} answered {out}, not the host "
+                     f"view's probe")
+    _, stats = _http(url + "/api/stats")
+    pool = stats["pool"]
+    keys = ("views_built", "chain_hops", "fused_applies", "params_verified")
+    print(f"cli serve: {url}, {n} predicts equal to host views' probes "
+          f"({_quantiles_ms(latencies)}); daemon pool "
+          f"{json.dumps({k: pool[k] for k in keys})}, requests "
+          f"{stats['requests']}, predictions {stats['predictions']}",
+          flush=True)
+    if pool["fused_applies"] == 0 or stats["predictions"] != n:
+        fail(f"cli serve: {pool['fused_applies']} fused applies, "
+             f"{stats['predictions']} of {n} predictions")
+
+
+def cli_collab(root, workdir, hub, seconds):
+    """``remote add``, ``push``, ``clone``, a checkout and a ``pull`` of
+    the clone, ``hub stats``/``hub gc``, ``remove-node`` and ``gc``."""
+    url = hub.url()
+    remote = f"{url}/r/team"
+    dest = os.path.join(workdir, "cli-clone")
+    mgit(["-C", root, "remote", "add", "origin", remote], seconds)
+    push = mgit_json(["-C", root, "push", "origin"], seconds)
+    if not push["published"] or push["objects_transferred"] == 0:
+        fail(f"cli push: {json.dumps(push)[:2000]}")
+    clone = mgit_json(["clone", remote, dest], seconds)
+    ft3 = mgit_json(["-C", dest, "checkout", "ft3"], seconds)
+    pull = mgit_json(["-C", dest, "pull", "origin"], seconds)
+    if pull["objects_transferred"] != 0 or (pull["merge"] or {}).get(
+            "conflicts"):
+        fail(f"cli pull: {json.dumps(pull)[:2000]}")
+    stats = mgit_json(["hub", "stats", url], seconds)
+    gc = mgit_json(["hub", "gc", url], seconds)
+    mgit(["-C", dest, "remove-node", "task-head"], seconds)
+    _, out = mgit(["-C", dest, "gc"], seconds)
+    reclaimed = int(out.split()[1])
+    print(f"cli collab: push {push['objects_transferred']} objects, "
+          f"{push['bytes_transferred']} bytes; clone "
+          f"{len(clone['selected_nodes'])} nodes, "
+          f"{clone['objects_transferred']} objects; clone's ft3 "
+          f"{ft3['params']} params; pull moved "
+          f"{pull['objects_transferred']}; hub stats "
+          f"{json.dumps({k: stats[k] for k in list(stats)[:6]})}; hub gc "
+          f"{json.dumps(gc)[:300]}; gc after remove-node task-head "
+          f"reclaimed {reclaimed} bytes", flush=True)
+    if reclaimed <= 0:
+        fail(f"cli gc reclaimed {reclaimed} bytes")
+    return ft3
+
+
+def cli_diag(root, seconds):
+    """``diag run`` twice (the second from the ledger), on the host with
+    ``--force``, then ``history``, ``blame`` and ``gate-report``."""
+    run = ["-C", root, "diag", "run", "ft3", "--builtin"]
+    cold = mgit_json(run, seconds)
+    warm = mgit_json(run, seconds)
+    host = mgit_json(["--backend", "ref", *run, "--force"], seconds)
+    rms = {k: r["results"]["ft3"]["builtin/param_rms"]["value"]
+           for k, r in (("cold", cold), ("warm", warm), ("host", host))}
+    if (cold["executed"] != 1 or warm["executed"] != 0
+            or warm["cache_hit_ratio"] != 1.0 or host["executed"] != 1
+            or len(set(rms.values())) != 1):
+        fail(f"cli diag run: executed {cold['executed']}, then "
+             f"{warm['executed']} (hit ratio {warm['cache_hit_ratio']}); "
+             f"RMS {rms}")
+    history = mgit_json(["-C", root, "diag", "history", "ft3"], seconds)
+    blame = mgit_json(["-C", root, "diag", "blame", "ft3",
+                       "builtin/param_rms", "--builtin"], seconds)
+    gate = mgit_json(["-C", root, "diag", "gate-report"], seconds)
+    if (not history or history[0]["test"] != "builtin/param_rms"
+            or blame["status"] != "pass" or gate != []):
+        fail(f"cli diag: history {history[:1]}, blame {blame['status']}, "
+             f"gate-report {gate}")
+    print(f"cli diag: param RMS of ft3 {rms['cold']} (card, ledger and host "
+          f"--force equal); blame ft3 {blame['status']} over "
+          f"{len(blame['entries'])} nodes; {len(history)} history entries",
+          flush=True)
+
+
+def cli_train(workdir, seconds):
+    """``train`` with continuous checkpointing, a second invocation that
+    resumes, and a lossy-tier run."""
+    ckpt = os.path.join(workdir, "cli-train")
+    first = mgit_json(["-C", ckpt, "train", *CLI_TRAIN, "--steps", "6"],
+                      seconds)
+    again = mgit_json(["-C", ckpt, "train", *CLI_TRAIN, "--steps", "2"],
+                      seconds)
+    lossy = mgit_json(["-C", os.path.join(workdir, "cli-train-lossy"),
+                       "train", *CLI_TRAIN, "--steps", "6", "--lossy-tier",
+                       "--keyframe-every", "2"], seconds)
+    for label, doc, start, latest in (("first", first, 0, 6),
+                                      ("resumed", again, 6, 8),
+                                      ("lossy", lossy, 0, 6)):
+        print(f"cli train {label}: start_step {doc['start_step']}, "
+              f"latest_step {doc['latest_step']}, tier {doc['tier']}, final "
+              f"loss {doc['final_loss']}, ckpt {json.dumps(doc['ckpt'])}",
+              flush=True)
+        if (doc["start_step"] != start or doc["latest_step"] != latest
+                or not math.isfinite(doc["final_loss"])):
+            fail(f"cli train {label}: {doc}")
+    if lossy["tier"] != "lossy":
+        fail(f"cli train: the lossy run's tier is {lossy['tier']}")
+
+
+def cli_path(workdir, card, facts):
+    """Phase 4f. ``facts`` are phase 4's checkouts: {node: (params,
+    bytes)}, the float64 norm of ft3's embed/tok. Returns the launch
+    counts of its run."""
+    import torch
+
+    from repro_torch.core import LineageGraph
+    from repro_torch.store import ArtifactStore
+
+    root = os.path.join(workdir, "whole")
+    store = ArtifactStore(root=root, chunk_threshold=0, backend="ref")
+    refs = {n: m.artifact_ref
+            for n, m in LineageGraph(path=root, store=store).nodes.items()}
+    ratio = store.compression_ratio()
+    seconds = []
+    zero_launches()
+    t0 = time.perf_counter()
+    # the daemons and a module run start first: each takes seconds to
+    # import torch and reach the card
+    serve = Daemon(["-C", root, "serve", "prod=node:ft3",
+                    "canary=node:task-head", "--port", "0"])
+    hub = Daemon(["-C", os.path.join(workdir, "cli-hub"), "hub", "serve",
+                  "--port", "0"])
+    cmd, env = module_cli(["-C", root, "checkout", "ft3"])
+    module = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                              stdin=subprocess.DEVNULL,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+    try:
+        _, log = mgit(["-C", root, "log"], seconds)
+        if sorted(line.split()[1] for line in log.splitlines()) != \
+                sorted(refs):
+            fail(f"cli log: {log}")
+        show = mgit_json(["-C", root, "show", "ft3"], seconds)
+        depth = store.get_manifest(refs["ft3"])["depth"]
+        if show["storage"]["depth"] != depth or show["artifact_ref"] != \
+                refs["ft3"]:
+            fail(f"cli show ft3: {show}")
+        param = mgit_json(["-C", root, "param", "ft3", "embed/tok"], seconds)
+        if param["dtype"] != "float32" or \
+                param["l2_norm"] != facts["embed_norm"]:
+            fail(f"cli param: {param}, phase 4's norm {facts['embed_norm']}")
+        stats = mgit_json(["-C", root, "stats"], seconds)
+        if stats["compression_ratio"] != ratio:
+            fail(f"cli stats: ratio {stats['compression_ratio']}, the "
+                 f"repository's {ratio}")
+        outs = {}
+        for node in CHECKOUT:
+            outs[node] = mgit_json(["-C", root, "checkout", node], seconds)
+            if (outs[node]["params"], outs[node]["bytes"]) != \
+                    facts["checkouts"][node]:
+                fail(f"cli checkout {node}: {outs[node]['params']} params, "
+                     f"{outs[node]['bytes']} bytes; phase 4's "
+                     f"{facts['checkouts'][node]}")
+        diff = {}
+        for backend in ("cuda", "ref"):
+            diff[backend] = mgit_json(["--backend", backend, "-C", root,
+                                       "diff", "ft2", "ft3", "--mode",
+                                       "contextual"], seconds)
+        if diff["cuda"] != diff["ref"]:
+            fail(f"cli diff: card {diff['cuda']}, host {diff['ref']}")
+        print(f"cli: log of {len(refs)} nodes; show ft3 depth {depth}; "
+              f"param ft3 embed/tok norm {param['l2_norm']} "
+              f"({param['bytes_materialized']} bytes materialized); stats "
+              f"ratio {ratio}; checkouts "
+              f"{ {n: (o['params'], o['bytes']) for n, o in outs.items()} } "
+              f"as phase 4's; diff ft2 ft3 divergence "
+              f"{diff['cuda']['divergence']} on card and host", flush=True)
+
+        t1 = time.perf_counter()
+        try:
+            out, err = module.communicate(timeout=DAEMON_START_S)
+        except subprocess.TimeoutExpired:
+            fail("cli: python -m repro_torch.cli checkout ft3 timed out")
+        seconds.append(("python -m repro_torch.cli checkout ft3 (waited)",
+                        time.perf_counter() - t1))
+        if module.returncode != 0:
+            fail(f"cli: python -m repro_torch.cli checkout ft3 exited "
+                 f"{module.returncode}: {err[-2000:]}")
+        got, want = json.loads(out), dict(outs["ft3"])
+        got.pop("seconds"), want.pop("seconds")
+        if got != want:
+            fail(f"cli: python -m repro_torch.cli checkout ft3 printed "
+                 f"{got}, in-process {want}")
+        print("cli: python -m repro_torch.cli checkout ft3 printed the "
+              "in-process checkout's JSON", flush=True)
+
+        cli_serve(root, refs, serve, seconds)
+        serve.stop()
+        clone_ft3 = cli_collab(root, workdir, hub, seconds)
+        if (clone_ft3["params"], clone_ft3["bytes"]) != \
+                facts["checkouts"]["ft3"]:
+            fail(f"cli: the clone's ft3 {clone_ft3}")
+        hub.stop()
+        cli_diag(root, seconds)
+        fsck = mgit_json(["-C", root, "fsck"], seconds)
+        _fsck_clean("cli fsck", fsck)
+        cli_train(workdir, seconds)
+        trace = os.path.join(workdir, "cli-trace.json")
+        traced = mgit_json(["-C", root, "obs", "trace", "--out", trace,
+                            "checkout", "ft3"], seconds)
+        with open(trace) as f:
+            spans = [e for e in json.load(f)["traceEvents"]
+                     if e.get("ph") == "X"]
+        if traced["params"] != facts["checkouts"]["ft3"][0] or not spans:
+            fail(f"cli obs trace: {len(spans)} spans, {traced}")
+        print(f"cli obs trace: {len(spans)} spans of "
+              f"{len({e['name'] for e in spans})} names", flush=True)
+        torch.cuda.synchronize()
+    finally:
+        for proc in (serve, hub):
+            proc.stop()
+        if module.poll() is None:
+            module.kill()
+            module.communicate()
+    launches = read_launches("cli")
+    total = time.perf_counter() - t0
+    print(f"cli: phase took {total:.3f} s ({len(seconds)} commands: "
+          f"{json.dumps([[k, round(v, 3)] for k, v in seconds])}), launches "
+          f"{json.dumps(launches)} ({card})", flush=True)
+    missing = [k for k in ("chain_apply", "dequant_apply", "fingerprint")
+               if launches[k] == 0]
+    if missing:
+        fail(f"cli launched no {', '.join(missing)} kernel")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: continuous checkpointing of a training run
 # ---------------------------------------------------------------------------
 
@@ -2760,6 +3153,13 @@ def _within_grid(label, cm, step, restored, live):
     return worst
 
 
+def exact_store(root):
+    """The store the exact tier's ``CheckpointManager`` opens (the chunk
+    engine at its default threshold), with ``FAST_CODEC``."""
+    from repro_torch.store import ArtifactStore
+    return ArtifactStore(root=root, t_thr=float("inf"), **FAST_CODEC)
+
+
 def whole_tensor_store(root):
     """The checkpoint manager's store with the chunk engine off: every
     leaf commits as a whole-tensor step delta (xdelta in the exact tier, an
@@ -2767,7 +3167,8 @@ def whole_tensor_store(root):
     With the default 8 MiB threshold the large leaves go through the host
     chunk engine, which never reaches the dequant kernel."""
     from repro_torch.store import ArtifactStore
-    return ArtifactStore(root=root, t_thr=float("inf"), chunk_threshold=0)
+    return ArtifactStore(root=root, t_thr=float("inf"), chunk_threshold=0,
+                         **FAST_CODEC)
 
 
 def train(tr, steps, every=2):
@@ -2806,6 +3207,8 @@ def checkpoint_path(cfg, workdir, card, seed):
         t0 = time.perf_counter()
         tr = Trainer(cfg, batch=8, seq=128, checkpoint_dir=root,
                      commit_every=2, seed=seed)
+        tr.ckpt = CheckpointManager(root, model_name=cfg.name,
+                                    store=exact_store(root))
         t1 = time.perf_counter()
         hist = train(tr, 6)         # commits at steps 2, 4 and 6
         t2 = time.perf_counter()
@@ -3320,7 +3723,8 @@ def workflow_path(workdir, card, seed):
     # less than one): the gate checks out each new version and its
     # version parent, which share most of their delta chain
     g = LineageGraph(path=root, store=ArtifactStore(
-        root=root, chunk_threshold=0, cache_budget_bytes=4 * 2**30))
+        root=root, chunk_threshold=0, cache_budget_bytes=4 * 2**30,
+        **FAST_CODEC))
     g.register_test_function(probe_score, "probe", mt=cfg.name)
     g.add_node(to_artifact(train_flat(cfg, None, seed), cfg.name), "base")
     for name, parent, task_seed in (("task-a", "base", 1), ("task-b", "base", 2),
@@ -3351,6 +3755,119 @@ def workflow_path(workdir, card, seed):
                            "flash_attention") if launches[k] == 0]
     if missing:
         fail(f"workflow launched no {', '.join(missing)} kernel")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the examples
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("quickstart", "serve_batched", "federated", "finetune_cascade")
+# what examples/quickstart.py prints on the host (numpy models and the store
+# only: the same seeds give the same figures in both packages and on any
+# device), but the lineage graph and the artifacts' directory
+QUICKSTART = (
+    "storage: logical=1.2MB physical=0.4MB ratio=2.77x",
+    "diff(base, task0): structural matched=7 (div=0.000); contextual "
+    "div=1.000",
+    "divergence(task0, task1): (0.0, 1.0)",
+    "tests: {'base': {'head_norm': 36.60130310058594}, 'task0': "
+    "{'head_norm': 36.601436614990234}, 'task1': {'head_norm': "
+    "36.601295471191406}}",
+    "diag: cold executed=3, warm cache-hit ratio=100%",
+    "merge(edit_a, edit_b): no_conflict — dependent changes; tests passed",
+)
+
+
+def run_example(name, workdir):
+    """``examples/torch/<name>.py`` run as a script with no arguments (the
+    reference's defaults, on the card), its temporary directories under
+    ``workdir``. Returns (its output, seconds)."""
+    import contextlib
+    import io
+    import runpy
+    import tempfile
+
+    path = os.path.join(ROOT, "examples", "torch", f"{name}.py")
+    buf = io.StringIO()
+    argv, tmp = sys.argv, tempfile.tempdir
+    sys.argv, tempfile.tempdir = [path], workdir
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+    except SystemExit as exc:
+        if exc.code not in (None, 0):
+            fail(f"example {name} exited {exc.code}: {buf.getvalue()[-2000:]}")
+    finally:
+        sys.argv, tempfile.tempdir = argv, tmp
+    dt = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"example {name}: {line}", flush=True)
+    print(f"example {name}: ran in {dt:.3f} s", flush=True)
+    return out, dt
+
+
+def check_examples(outs):
+    """Each example printed what the reference's prints."""
+    import re
+
+    lines = outs["quickstart"].splitlines()
+    missing = [want for want in QUICKSTART if want not in lines]
+    if missing:
+        fail(f"example quickstart: missing {missing}")
+    first, *rows = outs["serve_batched"].splitlines()
+    ids = " ".join(rows).replace("[", " ").replace("]", " ").split()
+    if not re.fullmatch(r"generated \(4, 16\) tokens for 4 requests in "
+                        r"[0-9.]+s \([0-9]+ tok/s on CUDA\)", first) \
+            or len(ids) != 64 or not all(0 <= int(t) < 512 for t in ids):
+        fail(f"example serve_batched printed {outs['serve_batched'][:500]}")
+    fed = outs["federated"].splitlines()
+    rounds = [f"round {r}: clients "
+              f"{sorted({(r * 7 + c) % 4 for c in range(3)})}"
+              for r in (1, 2, 3)]
+    stored = [re.match(r"13 models stored, ratio=([0-9.]+)x", line)
+              for line in fed if "models stored" in line]
+    if [line for line in fed if line.startswith("round")] != rounds or \
+            not stored or not stored[0] or not float(stored[0][1]) > 1:
+        fail(f"example federated printed {outs['federated'][-1500:]}")
+    cascade = outs["finetune_cascade"]
+    ratios = [float(r) for r in re.findall(r"ratio=([0-9.]+)x", cascade)]
+    if ("      rebuilt: ['task0@v2', 'task1@v2', 'task2@v2']"
+            not in cascade.splitlines() or len(ratios) != 2
+            or not all(r > 1 for r in ratios)):
+        fail(f"example finetune_cascade printed {cascade[-1500:]}")
+    return ratios
+
+
+def examples_path(workdir, card):
+    """Phase 10. Returns the launch counts of its run."""
+    import torch
+
+    root = os.path.join(workdir, "examples")
+    os.makedirs(root, exist_ok=True)
+    flash = wrappers()["flash_attention"]
+    zero_launches()
+    t0 = time.perf_counter()
+    outs, seconds, flash_in = {}, {}, {}
+    for name in EXAMPLES:
+        before = flash.launches
+        outs[name], seconds[name] = run_example(name, root)
+        flash_in[name] = flash.launches - before
+    torch.cuda.synchronize()
+    launches = read_launches("examples")
+    ratios = check_examples(outs)
+    print(f"examples: all four exited 0 and printed the reference's lines in "
+          f"{time.perf_counter() - t0:.3f} s "
+          f"({json.dumps({k: round(v, 3) for k, v in seconds.items()})}); "
+          f"finetune_cascade storage ratios {ratios}; flash launches by "
+          f"example {json.dumps(flash_in)}; launches {json.dumps(launches)} "
+          f"({card})", flush=True)
+    if launches["snapshot_fused"] == 0 or flash_in["serve_batched"] == 0:
+        fail(f"examples launched snapshot_fused {launches['snapshot_fused']} "
+             f"times, flash_attention {flash_in['serve_batched']} in "
+             f"serve_batched")
     return launches
 
 
@@ -3394,8 +3911,10 @@ def main() -> int:
 
     # phase 3: kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    t0 = time.perf_counter()
     errs = check_kernels(gen)
     timing = time_kernels(gen)
+    phase_s = {"3": round(time.perf_counter() - t0, 3)}
 
     # phases 4 and 5: the main path at full width
     cfg = dataclasses.replace(get_config("paper-bert"), dtype="float32")
@@ -3408,21 +3927,40 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-",
                                dir=os.path.join(ROOT, "build"))
+
+    def timed(phase, fn, *fn_args):
+        t = time.perf_counter()
+        result = fn(*fn_args)
+        phase_s[phase] = round(time.perf_counter() - t, 3)
+        return result
+
     try:
-        launches = {"lineage": main_path(cfg, params, workdir, card)}
-        launches["serving"] = serving_path(cfg, workdir, args.seed)
-        launches["collab"] = collab_path(cfg, workdir, card, args.seed)
-        launches["lineage_f16"] = f16_path(cfg, params, workdir, card)
-        launches["lineage_bf16"] = bf16_path(workdir, card, args.seed)
-        launches["lineage_vlm"] = vlm_path(workdir, card, args.seed)
-        launches["families"] = families_path(card, args.seed)
-        chunked_path(cfg, params, workdir)
+        launches = {}
+        launches["lineage"], facts = timed("4", main_path, cfg, params,
+                                           workdir, card)
+        launches["serving"] = timed("4b", serving_path, cfg, workdir,
+                                    args.seed)
+        launches["collab"] = timed("4e", collab_path, cfg, workdir, card,
+                                   args.seed)
+        launches["cli"] = timed("4f", cli_path, workdir, card, facts)
+        launches["lineage_f16"] = timed("4c", f16_path, cfg, params, workdir,
+                                        card)
+        launches["lineage_bf16"] = timed("4d", bf16_path, workdir, card,
+                                         args.seed)
+        launches["lineage_vlm"] = timed("8", vlm_path, workdir, card,
+                                        args.seed)
+        launches["families"] = timed("9", families_path, card, args.seed)
+        timed("5", chunked_path, cfg, params, workdir)
         del params
-        launches["checkpoint"] = checkpoint_path(cfg, workdir, card,
-                                                 args.seed)
-        launches["workflow"] = workflow_path(workdir, card, args.seed)
+        launches["checkpoint"] = timed("6", checkpoint_path, cfg, workdir,
+                                       card, args.seed)
+        launches["workflow"] = timed("7", workflow_path, workdir, card,
+                                     args.seed)
+        launches["examples"] = timed("10", examples_path, workdir, card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    print(f"phase seconds: {json.dumps(phase_s)}; since start "
+          f"{time.perf_counter() - START:.3f} s", flush=True)
 
     replaces = {
         "snapshot_fused": ("snapshot_fused.cu",

@@ -146,6 +146,7 @@ class ReplicaHub:
 def serve_replica(root: str, primary_url: str, token: Optional[str] = None,
                   host: str = "127.0.0.1", port: int = 0,
                   sync_interval_s: float = 5.0,
+                  backend: Optional[str] = None,
                   ) -> Tuple[ReplicaHub, HubServer, threading.Thread]:
     """Start a read-replica hub: HTTP server + periodic sync thread.
 
@@ -153,7 +154,7 @@ def serve_replica(root: str, primary_url: str, token: Optional[str] = None,
     daemon thread (``server.url``), the sync thread mirrors every
     ``sync_interval_s`` (0 disables the loop — call ``sync_once`` or POST
     ``/api/replica/sync`` to sync on demand)."""
-    replica = ReplicaHub(root, primary_url, token=token)
+    replica = ReplicaHub(root, primary_url, token=token, backend=backend)
     server, _ = start_in_thread(replica.service, host=host, port=port)
     server.replica = replica
     if sync_interval_s > 0:

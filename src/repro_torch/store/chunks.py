@@ -45,6 +45,7 @@ DEFAULT_WINDOW_BYTES = 64 * 2 ** 20      # commit/checkout in-flight budget
 
 WINDOW = 8                               # rolling-hash window, bytes
 _SCAN_BLOCK = 4 * 2 ** 20                # sub-block for vectorized hashing
+_CUT_BLOCK = 256 * 2 ** 10               # a cut decision's scan step
 
 # 8 independent 256-entry u64 tables from a fixed-seed PRNG: boundary
 # positions are a pure function of content, stable across processes/versions.
@@ -101,13 +102,23 @@ def _next_cut(data, min_size: int, max_size: int, itemsize: int,
     def snap(off: int) -> int:
         return (off // itemsize) * itemsize
 
-    for c in _candidates(memoryview(data), mask):
-        cut = snap(int(c) + 1)
-        if cut < min_size:
-            continue
-        if cut > max_size:
-            break
-        return cut
+    # Hash only what the choice can use: no candidate below
+    # min_size - itemsize can snap up to min_size, and the first one that
+    # lands in range ends the scan, so the window is read in _CUT_BLOCK
+    # pieces (each with the WINDOW-1 bytes before it) instead of whole.
+    buf = np.frombuffer(data, dtype=np.uint8)
+    pos = max(WINDOW - 1, min_size - itemsize)
+    while pos < buf.size:
+        stop = min(buf.size, pos + _CUT_BLOCK)
+        base = pos - (WINDOW - 1)
+        for c in _candidates(memoryview(buf[base:stop]), mask):
+            cut = snap(int(c) + base + 1)
+            if cut < min_size:
+                continue
+            if cut > max_size:
+                return max(itemsize, snap(max_size))
+            return cut
+        pos = stop
     return max(itemsize, snap(max_size))
 
 

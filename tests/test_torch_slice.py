@@ -201,11 +201,16 @@ FORBIDDEN_IMPORT = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)",
 
 
 def test_port_sources_import_no_jax_and_no_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples" / "torch").glob("*.py"))
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + examples)
     assert len(files) > 30
     assert PORT / "diag" / "runner.py" in files
     assert PORT / "remote" / "sync.py" in files
     assert PORT / "hub" / "routes.py" in files
+    assert PORT / "cli.py" in files
+    assert [f.stem for f in examples] == ["federated", "finetune_cascade",
+                                          "quickstart", "serve_batched"]
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files
                  for m in FORBIDDEN_IMPORT.finditer(f.read_text())]

@@ -206,6 +206,40 @@ def test_shard_cuts_identical(n_shards):
             ref_shard_cuts(path, shape, 4, n_shards)
 
 
+def _cut_input(kind: str) -> bytes:
+    rng = np.random.default_rng(23)
+    if kind == "random":
+        return rng.integers(0, 256, 3 * 2 ** 20, dtype=np.uint8).tobytes()
+    if kind == "low-entropy":     # few byte values: hits come often
+        return rng.integers(0, 3, 3 * 2 ** 20, dtype=np.uint8).tobytes()
+    # zeros then noise: no hit for megabytes, so the max_size cut is forced
+    return bytes(2 ** 20) + rng.integers(0, 256, 2 ** 20,
+                                         dtype=np.uint8).tobytes()
+
+
+@pytest.mark.parametrize("kind", ["random", "low-entropy", "zeros"])
+@pytest.mark.parametrize("itemsize,sizes", [
+    (1, (4096, 16384, 65536)), (4, (16 * 1024, 32 * 1024, 256 * 1024)),
+    (2, (128 * 1024, 512 * 1024, 2 ** 20)), (4, (3, 4096, 300 * 1024))])
+def test_cut_points_identical(kind, itemsize, sizes):
+    """The port's early-exit cut search chooses the reference's cuts."""
+    from repro.store import chunks as ref_chunks
+
+    from repro_torch.store import chunks
+
+    data = _cut_input(kind)
+
+    def read(offset, size):
+        return data[offset:offset + size]
+
+    lo, avg, hi = sizes
+    kw = dict(min_size=lo, avg_size=avg, max_size=hi,
+              segments=[len(data) // 3 // itemsize * itemsize])
+    got = chunks.cut_points(read, len(data), itemsize, **kw)
+    assert got == ref_chunks.cut_points(read, len(data), itemsize, **kw)
+    assert len(got) >= 3     # a cut beside the segment bound and the end
+
+
 @pytest.mark.parametrize("arch", ["paper-bert", "paper-bert-small"])
 def test_param_shapes_and_init_match_reference(arch):
     cfg = dataclasses.replace(get_config(arch), dtype="float32")
