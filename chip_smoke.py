@@ -32,7 +32,19 @@ exits non-zero on failure:
    overflowing, mixed and rounding-edge cases) bit for bit against the
    plain versions and the numpy twins (bf16 on the host as the carrier of
    ``repro_torch/common/bf16.py``), and ``ops.delta_quantize``'s per-tile
-   zero counts against a numpy count of the reference's tiling; times each
+   zero counts against a numpy count of the reference's tiling; holds each
+   storage kernel once above 2^31 elements (f32 operands of 2^31 + 2^20
+   elements for snapshot_fused, delta_quantize with per-tile counts and
+   dequant_apply; a 3-hop chain_apply over 8e8 elements; fingerprint over
+   2^32 + 2^20 bf16 elements, whose index wraps) bit for bit against its
+   plain version run slice by slice on the same card tensors and against
+   the numpy twin on a slice, printing each case's peak memory; holds the
+   flash kernel in bf16 at phase 11b's prefill calls of 32768 tokens, cut
+   in heads (qwen3-0.6b's group, (1, 2 q / 1 kv, 32768, 128) causal;
+   paligemma-3b's, (1, 8 q / 1 kv, 32768, 256) with a 256-token prefix),
+   against its plain version one head at a time, each element within
+   3e-2 plus one bf16 unit in the last place of the plain result (q
+   scaled so the result is of the order of v); times each
    kernel (and its float16 and bfloat16 variants) and its plain version,
    and flash attention in f32, bf16 and f16 (device time per call, and
    eager) beside ``scaled_dot_product_attention``, which the port never
@@ -198,7 +210,34 @@ exits non-zero on failure:
    fails unless snapshot_fused launched, and flash_attention in
    serve_batched.
 
-Phases 4, 4b, 4e, 4f, 4c, 4d, 8, 9, 6, 7 and 10 (in that order; 5 runs
+11. launch: (a) prints one line per cell of the committed dry-run sweep,
+   read from ``experiments/dryrun_torch.json`` and not run here (10 archs
+   x 4 cells; it must hold them all, none in error, jamba-1.5-large-398b
+   fitting in none), then dry-runs on this host (meta tensors, in three
+   spawned processes) each real cell of (b) at the configuration it runs
+   at (at its cap where the cap fits, else searching the largest batch
+   that fits), and qwen3-0.6b,
+   yi-6b, paligemma-3b and jamba at decode_32k's batch 128, which must not
+   fit and whose peaks must equal the file's to the byte; (b) runs the
+   real cells at full width in bf16, random weights from the seed, at
+   their caps for time or the largest batch that fits below them
+   (``LAUNCH_CELLS``; the cap and the largest batch printed): qwen3-0.6b
+   train_4k (one step of one microbatch), prefill_32k (batch 1, flash at
+   32768 tokens) and decode_32k (4 steps); mixtral-8x7b (1 of 32 layers)
+   and mamba2-780m and seamless-m4t-large-v2 train_4k; mamba2-780m
+   long_500k (4 decode steps); paligemma-3b (2 of 18 layers) prefill_32k
+   (flash at head dim 256 with its prefix). Each prints its measured peak
+   (``max_memory_allocated`` after ``reset_peak_memory_stats``, less what
+   was allocated before its inputs) against the prediction, its seconds
+   per step (CUDA events, after a warm-up step) against ``bound_s``, and
+   its flash launches; it fails on an out-of-memory error, a peak above
+   1.25x the prediction or a time under 0.9x ``bound_s``; (c) a
+   checkpointed ``Trainer`` in bf16 at ``reduced()`` width of mixtral,
+   mamba2, seamless and paligemma: 4 steps committing every 2, 2 more
+   resumed by a fresh Trainer, bit-identical to 6 uninterrupted steps,
+   with fingerprint launches in each.
+
+Phases 4, 4b, 4e, 4f, 4c, 4d, 8, 9, 6, 7, 10 and 11 (in that order; 5 runs
 after 9) each zero every kernel's launch count (and its count by operand
 dtype) just before they drive their path and read it just after; the
 launches of the daemons' and the module run's subprocesses are not
@@ -762,6 +801,78 @@ def check_flash(gen, bad):
     return worst
 
 
+# the flash calls of phase 11b's prefill cells at 32,768 tokens, cut in
+# heads so that the plain version fits the card: qwen3-0.6b's GQA group of
+# 2 at head dim 128, and paligemma-3b's MQA group of 8 at head dim 256
+# with its 256-token prefix
+FLASH_LONG_CASES = (
+    (dict(B=1, Hq=2, Hkv=1, S=32768, hd=128), dict(causal=True)),
+    (dict(B=1, Hq=8, Hkv=1, S=32768, hd=256), PALIGEMMA_MASKS),
+)
+# q's scale there: each row's softmax then falls on a few keys, so the
+# result is of the order of v and a key tile dropped or read twice moves
+# it past the tolerance (at scale 1 the mean |result| at 32,768 tokens is
+# under the tolerance)
+FLASH_LONG_Q_SCALE = 4.0
+FLASH_LONG_SIGNAL = 5      # mean |plain| at least this times the tolerance
+# results reach |x| >= 4 there, where one bf16 unit in the last place
+# (2^-5) passes the absolute tolerance; each element is held within the
+# tolerance plus one such unit of the plain result (2^-7 |plain| covers it)
+FLASH_LONG_RTOL = 2**-7
+
+
+def check_flash_long(gen, bad):
+    """The flash kernel in bf16 at ``FLASH_LONG_CASES``, one launch per
+    case, against its plain version computed one query head at a time on
+    the same card tensors (a head's f32 scores are 4.3 GB), each element
+    within bf16's tolerance plus ``FLASH_LONG_RTOL`` |plain|. Prints each
+    case's error, the elements past the tolerance alone, mean |plain|,
+    seconds and peak memory; returns the largest |kernel - plain|."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    tol = FLASH_TOL["bfloat16"]
+    worst = 0.0
+    for shape, masks in FLASH_LONG_CASES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        q, k, v = flash_inputs(gen, shape, torch.bfloat16)
+        q = (q.float() * FLASH_LONG_Q_SCALE).to(torch.bfloat16)
+        got = flash_attention(q, k, v, **masks)
+        err = signal = 0.0
+        past_tol = outside = 0
+        for h in range(shape["Hq"]):
+            plain = flash_attention_ref(q[:, h:h + 1], k, v, **masks)
+            err = max(err, max_abs(got[:, h:h + 1], plain))
+            p = plain.double()
+            diff = (got[:, h:h + 1].double() - p).abs()
+            past_tol += int((~(diff <= tol)).sum())
+            outside += int((~(diff <= tol + FLASH_LONG_RTOL * p.abs())).sum())
+            signal += float(p.abs().mean()) / shape["Hq"]
+            del plain, p, diff
+        torch.cuda.synchronize()
+        worst = max(worst, err)
+        print(f"flash long {shape} {masks} bf16, q x {FLASH_LONG_Q_SCALE}: "
+              f"max |kernel - plain| {err:.4g}, {past_tol} elements past "
+              f"{tol}, {outside} past {tol} + {FLASH_LONG_RTOL} |plain|; "
+              f"mean |plain| {signal:.4g}; {time.perf_counter() - t0:.3f} s, "
+              f"peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB",
+              flush=True)
+        if got.shape != q.shape or outside:
+            bad.append(f"flash_attention bf16 {shape} {masks}: {outside} "
+                       f"elements past {tol} + {FLASH_LONG_RTOL} |plain| "
+                       f"(max |kernel - plain| {err})")
+        if not signal >= FLASH_LONG_SIGNAL * tol:
+            bad.append(f"flash_attention bf16 {shape}: mean |plain| "
+                       f"{signal} is under {FLASH_LONG_SIGNAL} x the "
+                       f"tolerance: the check could miss a key tile")
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return worst
+
+
 def fingerprint_cases(gen):
     """(label, tensor) on the card: the checkpoint's largest leaves, a
     ragged length, the 16-bit float types, int32, and f64 (cast to f32)."""
@@ -805,6 +916,168 @@ def check_fingerprint(gen, bad):
             or ops.snapshot_fused(p1, p2, EPS)[2] != host):
         bad.append("fingerprint: ops on the card differs from the host")
     return err
+
+
+# operands above the 2^31 - 1 elements that 32-bit counts and indices
+# could hold: f32 operands of 2^31 + 2^20 elements (8.6 GB each), a 3-hop
+# stack over a leaf of 8e8 elements (2.4e9 int32), and 2^32 + 2^20 bf16
+# elements for the fingerprint, whose position index wraps mod 2^32
+LARGE_N = 2**31 + 2**20
+LARGE_CHAIN_N = 800_000_000
+LARGE_FP_N = 2**32 + 2**20
+LARGE_SLICE = 2**28      # the plain versions run on slices of this length
+
+
+def _ranges(n, step):
+    return [(a, min(a + step, n)) for a in range(0, n, step)]
+
+
+def plain_fingerprint(bits, n_pad, step=2**27):
+    """``ref.fingerprint_padded``'s pair of a flat 16-bit tensor, in slices:
+    each slice's (bits, global index) mixed and wrap-summed, the padding
+    past ``bits`` counted as zeros."""
+    import torch
+
+    from repro_torch.kernels import ref
+    h1 = h2 = 0
+    for a, b in _ranges(n_pad, step):
+        chunk = torch.zeros(b - a, dtype=torch.int64, device=bits.device)
+        end = min(b, bits.numel())
+        if end > a:
+            chunk[:end - a] = bits[a:end].view(torch.int16).to(
+                torch.int64) & 0xFFFF
+        idx = torch.arange(a, b, dtype=torch.int64, device=bits.device)
+        x1, x2 = ref._mix(chunk, idx)
+        h1 = (h1 + int(x1.sum())) & 0xFFFFFFFF
+        h2 = (h2 + int(x2.sum())) & 0xFFFFFFFF
+        del chunk, idx, x1, x2
+    return [h1, h2]
+
+
+def check_large(gen, bad):
+    """Each storage kernel once above 2^31 elements, bit for bit against its
+    plain version run slice by slice on the same card tensors (the counts
+    summed in int64), and against the numpy twin on a slice that crosses
+    element 2^31. Each case frees its tensors before the next; prints each
+    case's seconds and peak device memory. Returns {kernel: max |err|}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.chain_apply import chain_apply_flat
+    from repro_torch.kernels.delta_quantize import (delta_quantize_flat,
+                                                    dequant_apply_flat)
+    from repro_torch.kernels.fingerprint import fingerprint_flat
+    from repro_torch.kernels.snapshot_fused import snapshot_fused_flat
+    from repro_torch.store.delta import host_dequant, host_snapshot
+
+    errs = {}
+    cross = slice(2**31 - 2**19, 2**31 + 2**19)   # the twin's slice
+
+    def case(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        print(f"large {name}: {time.perf_counter() - t0:.3f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+        torch.cuda.empty_cache()
+
+    def same(name, label, got, want):
+        errs[name] = max(errs.get(name, 0.0), max_abs(got, want))
+        if not same_bits(got, want):
+            bad.append(f"{name} large {label}: differs")
+
+    def pair(n, scale):
+        p2 = torch.randn(n, generator=gen, device="cuda") * 0.036
+        p1 = torch.randn(n, generator=gen, device="cuda").mul_(scale).add_(p2)
+        return p1, p2
+
+    def snapshot():
+        p1, p2 = pair(LARGE_N, 1e-4)
+        q8, zeros, ovf = snapshot_fused_flat(p1, p2, EPS)
+        nz = no = 0
+        for a, b in _ranges(LARGE_N, LARGE_SLICE):
+            q8_p, z_p, o_p = ref.snapshot_fused_ref(p1[a:b], p2[a:b], EPS)
+            same("snapshot_fused", f"[{a}:{b}]", q8[a:b], q8_p)
+            nz, no = nz + int(z_p), no + int(o_p)
+        if (int(zeros), int(ovf)) != (nz, no) or zeros.dtype != torch.int64:
+            bad.append(f"snapshot_fused large: counts {int(zeros)}, "
+                       f"{int(ovf)} ({zeros.dtype}) vs plain {nz}, {no}")
+        if no:
+            bad.append("snapshot_fused large: the delta did not narrow")
+        h1, h2 = p1[cross].cpu().numpy(), p2[cross].cpu().numpy()
+        twin, _, _ = host_snapshot(h1, h2, EPS)
+        same("snapshot_fused", "twin", q8[cross].cpu(), torch.from_numpy(twin))
+        print(f"large snapshot_fused: {LARGE_N} f32, zeros {int(zeros)}",
+              flush=True)
+
+    def quantize_and_dequant():
+        p1, p2 = pair(LARGE_N, 1e-4)
+        tile, pad = ops._tiling(LARGE_N)
+        q, tiles = delta_quantize_flat(p1, p2, EPS, tile=tile)
+        _, whole = delta_quantize_flat(p1, p2, EPS)
+        step = LARGE_SLICE // tile * tile
+        want = []
+        for a, b in _ranges(LARGE_N, step):
+            q_p, _ = ref.delta_quantize_ref(p1[a:b], p2[a:b], EPS)
+            same("delta_quantize", f"[{a}:{b}]", q[a:b], q_p)
+            want.append(ref.tile_zero_counts(q_p, tile))
+            del q_p
+        want = torch.cat(want)
+        if not torch.equal(tiles, want) or tiles.dtype != torch.int32:
+            bad.append("delta_quantize large: per-tile counts differ")
+        if int(whole) != int(want.sum()) or whole.dtype != torch.int64:
+            bad.append(f"delta_quantize large: zero count {int(whole)} vs "
+                       f"{int(want.sum())}")
+        hq = np.floor((p1[cross].cpu().numpy() - p2[cross].cpu().numpy())
+                      / np.float32(ref.quant_scale(EPS))
+                      + np.float32(0.5)).astype(np.int32)
+        same("delta_quantize", "twin", q[cross].cpu(), torch.from_numpy(hq))
+        del p2, tiles, want
+        out = dequant_apply_flat(p1, q, EPS)
+        for a, b in _ranges(LARGE_N, LARGE_SLICE):
+            same("dequant_apply", f"[{a}:{b}]", out[a:b],
+                 ref.dequant_apply_ref(p1[a:b], q[a:b], EPS))
+        same("dequant_apply", "twin", out[cross].cpu(), torch.from_numpy(
+            host_dequant(p1[cross].cpu().numpy(), hq, EPS)))
+        print(f"large delta_quantize: {LARGE_N} f32, {tiles_n(tile)} tiles "
+              f"of {tile}, zeros {int(whole)}; dequant_apply", flush=True)
+
+    def tiles_n(tile):
+        return -(-LARGE_N // tile)
+
+    def chain():
+        base = torch.randn(LARGE_CHAIN_N, generator=gen, device="cuda")
+        qs = torch.randint(-300, 300, (3, LARGE_CHAIN_N), generator=gen,
+                           device="cuda", dtype=torch.int32)
+        out = chain_apply_flat(base, qs, EPS)
+        for a, b in _ranges(LARGE_CHAIN_N, LARGE_SLICE):
+            same("chain_apply", f"[{a}:{b}]", out[a:b],
+                 ref.chain_apply_ref(base[a:b], qs[:, a:b], EPS))
+        tail = slice(LARGE_CHAIN_N - 2**20, LARGE_CHAIN_N)
+        qsum = qs[:, tail].sum(dim=0, dtype=torch.int32).cpu().numpy()
+        same("chain_apply", "twin", out[tail].cpu(), torch.from_numpy(
+            host_dequant(base[tail].cpu().numpy(), qsum, EPS)))
+        print(f"large chain_apply: 3 x {LARGE_CHAIN_N} int32 "
+              f"({qs.numel()} elements)", flush=True)
+
+    def fingerprint():
+        x = torch.randn(LARGE_FP_N, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        got = fingerprint_flat(x).cpu().tolist()
+        want = plain_fingerprint(x, ref.padded_length(LARGE_FP_N))
+        errs["fingerprint"] = max(abs(g - w) for g, w in zip(got, want))
+        if got != want:
+            bad.append(f"fingerprint large: {got} vs plain {want}")
+        print(f"large fingerprint: {LARGE_FP_N} bf16, {got}", flush=True)
+
+    for name, fn in (("snapshot_fused", snapshot),
+                     ("delta_quantize + dequant_apply", quantize_and_dequant),
+                     ("chain_apply", chain), ("fingerprint", fingerprint)):
+        case(name, fn)
+    return errs
 
 
 def time_kernels(gen):
@@ -3871,6 +4144,288 @@ def examples_path(workdir, card):
     return launches
 
 
+# phase 11: the launch dry run and one real cell per family that fits.
+# (arch, layers (None: all), cell, cap on the batch for time)
+LAUNCH_TRAIN_CAP = 2       # sequences of 4096 tokens in a step's microbatch
+LAUNCH_DECODE_CAP = 128    # the decode_32k cell's own batch
+# (the dry runs that take longest on the host first)
+LAUNCH_CELLS = (
+    ("seamless-m4t-large-v2", None, "train_4k", LAUNCH_TRAIN_CAP),
+    ("qwen3-0.6b", None, "train_4k", LAUNCH_TRAIN_CAP),
+    ("mamba2-780m", None, "train_4k", LAUNCH_TRAIN_CAP),
+    ("mixtral-8x7b", 1, "train_4k", LAUNCH_TRAIN_CAP),
+    ("qwen3-0.6b", None, "prefill_32k", 1),
+    ("qwen3-0.6b", None, "decode_32k", LAUNCH_DECODE_CAP),
+    ("mamba2-780m", None, "long_500k", LAUNCH_DECODE_CAP),
+    ("paligemma-3b", 2, "prefill_32k", 1),
+)
+# processes for phase 11a's dry runs (host work, one core each): seamless's
+# train cell alone is about a minute of it on the card's host
+LAUNCH_DRYRUN_PROCESSES = 3
+# cells that must not fit one card: at decode_32k's batch of 128 the
+# cache alone passes 80 GB for these; jamba-1.5-large-398b's weights do
+LAUNCH_NOT_FITTING = (("qwen3-0.6b", "decode_32k"), ("yi-6b", "decode_32k"),
+                      ("paligemma-3b", "decode_32k"),
+                      ("jamba-1.5-large-398b", "decode_32k"))
+LAUNCH_DECODE_STEPS = 4
+LAUNCH_PEAK_RATIO = 1.25   # measured peak at most this times the predicted
+LAUNCH_BOUND_SHARE = 0.9   # measured time at least this share of bound_s
+LAUNCH_TRAIN_FAMILIES = ("mixtral-8x7b", "mamba2-780m",
+                         "seamless-m4t-large-v2", "paligemma-3b")
+DRYRUN_FILE = "experiments/dryrun_torch.json"
+
+
+def launch_config(arch, layers):
+    from repro_torch.models import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def launch_sweep_file():
+    """Phase 11a, first part: one line per cell of the committed sweep
+    (``python -m repro_torch.launch.dryrun``, all 10 archs x 4 cells: an
+    hour of host work, too long to run here), read from the file and not
+    run here; it must hold every cell, none in error, and
+    jamba-1.5-large-398b fitting in none."""
+    from repro_torch.launch import dryrun
+
+    with open(os.path.join(ROOT, DRYRUN_FILE)) as f:
+        sweep = json.load(f)
+    print(f"dryrun: the {len(sweep)} cells below are read from "
+          f"{DRYRUN_FILE} (computed on a host without a card), not run "
+          f"here", flush=True)
+    for key, r in sweep.items():
+        print(f"dryrun (read from the file) {key}: {dryrun.summary(r)}",
+              flush=True)
+    errors = [k for k, r in sweep.items() if r.get("status") == "error"]
+    jamba_fits = [k for k, r in sweep.items()
+                  if k.startswith("jamba-1.5-large-398b|") and r.get("fits")]
+    if errors or jamba_fits or len(sweep) != 40:
+        fail(f"{DRYRUN_FILE}: {len(sweep)} cells, errors {errors}, "
+             f"jamba fits in {jamba_fits}")
+    return sweep
+
+
+def launch_dryrun(sweep):
+    """Phase 11a: dry-run on this host each real cell at the configuration
+    it runs at (cut depth, one microbatch, at its cap where the cap fits,
+    else at the largest batch that fits, searched), and the cells that must
+    not fit, whose peaks must equal the committed sweep's to the byte.
+    Returns the real cells' predictions."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    capacity = (torch.cuda.get_device_properties(0).total_memory,
+                torch.cuda.get_device_name(0))
+    jobs = [(arch, shape, dict(
+        cfg=launch_config(arch, layers), capacity=capacity, cap=cap,
+        microbatches=1 if shape == "train_4k" else None))
+        for arch, layers, shape, cap in LAUNCH_CELLS]
+    jobs += [(arch, shape, dict(capacity=capacity, search=False))
+             for arch, shape in LAUNCH_NOT_FITTING]
+    t0 = time.perf_counter()
+    got = [None] * len(jobs)
+    for i, r in dryrun.run_cells(jobs, LAUNCH_DRYRUN_PROCESSES):
+        got[i] = r
+        arch, shape, kw = jobs[i]
+        layers = kw["cfg"].n_layers if "cfg" in kw else None
+        print(f"dryrun {arch} ({layers or 'all'} layers) {shape}: "
+              f"{dryrun.summary(r)}, batch {r.get('batch')}, "
+              f"{r['cell_s']} s on the host", flush=True)
+        if r["status"] != "ok":
+            fail(f"dry run {arch} {shape}: {r.get('error', r['status'])}")
+    print(f"dryrun: {len(jobs)} cells in {time.perf_counter() - t0:.3f} s "
+          f"on the host", flush=True)
+    for r, (arch, shape, _) in zip(got[len(LAUNCH_CELLS):],
+                                   jobs[len(LAUNCH_CELLS):]):
+        want = sweep[f"{arch}|{shape}|1xH100"]["peak_bytes"]
+        print(f"dryrun {arch} {shape}: peak {r['peak_bytes']} B here, "
+              f"{want} B in {DRYRUN_FILE}", flush=True)
+        if r["peak_bytes"] != want:
+            fail(f"dry run {arch} {shape}: peak {r['peak_bytes']} B here, "
+                 f"{want} B in {DRYRUN_FILE}: the committed sweep is stale")
+        if r["fits"]:
+            fail(f"dry run {arch} {shape}: fits one card at batch "
+                 f"{r['batch']}")
+    for r, (arch, shape, kw) in zip(got, jobs[:len(LAUNCH_CELLS)]):
+        if not r["fits"]:
+            fail(f"dry run {arch} {shape}: does not fit at batch "
+                 f"{r['batch']}")
+    return got[:len(LAUNCH_CELLS)]
+
+
+def launch_inputs(cfg, cell, batch, gen):
+    """The real cell's inputs on the card: the train state or parameters
+    drawn from ``gen``, and the batch (or token and a zeroed cache) with the
+    dry run's shapes and dtypes."""
+    import torch
+
+    from repro_torch.launch.shapes import CROSS_LEN, cell_inputs
+    from repro_torch.models.model import _nested, init_cache, init_params
+    from repro_torch.train.step import init_state
+
+    specs = cell_inputs(cfg, cell)
+
+    def like(t):
+        if t.dtype.is_floating_point:
+            return torch.randn(t.shape, generator=gen, device="cuda",
+                               dtype=t.dtype)
+        return torch.randint(0, cfg.vocab_size, t.shape, generator=gen,
+                             device="cuda", dtype=t.dtype)
+
+    seed = int(torch.randint(0, 2**31 - 1, (), generator=gen,
+                             device="cuda"))
+    if cell.kind == "train":
+        return {"state": init_state(cfg, seed, device="cuda"),
+                "batch": {k: like(v) for k, v in specs["batch"].items()}}
+    params = _nested(init_params(cfg, torch.Generator(device="cuda")
+                                 .manual_seed(seed)))
+    if cell.kind == "prefill":
+        return {"params": params,
+                "batch": {k: like(v) for k, v in specs["batch"].items()}}
+    enc = CROSS_LEN if cfg.family in ("encdec", "audio") else 0
+    return {"params": params, "token": like(specs["token"]), "pos": None,
+            "cache": init_cache(cfg, batch, cell.seq, enc, device="cuda")}
+
+
+def launch_real_cell(pred, cfg, gen):
+    """Phase 11b, one cell: its step on the card at the predicted batch,
+    once to warm up, then timed with CUDA events (a decode cell: the mean
+    of ``LAUNCH_DECODE_STEPS`` steps) and its peak memory read from the
+    caching allocator, both held against the prediction. Returns
+    (measured peak bytes, seconds per step, flash launches)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import SHAPES
+
+    cell = dataclasses.replace(SHAPES[pred["shape"]], batch=pred["batch"],
+                               microbatches=pred["microbatches"])
+    fn, order = dryrun.build_step(cfg, cell)
+    label = (f"{pred['arch']} ({cfg.n_layers} layers) {pred['shape']} at "
+             f"batch {pred['batch']}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    flash0 = flash_attention.launches
+    try:
+        inputs = launch_inputs(cfg, cell, pred["batch"], gen)
+        args = tuple(inputs[k] for k in order)
+        out = fn(*args)                                  # warm-up
+        del out
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = LAUNCH_DECODE_STEPS if cell.kind == "decode" else 1
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            out = fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        seconds = start.elapsed_time(end) / 1e3 / steps
+        peak = torch.cuda.max_memory_allocated() - base
+        del out, args, inputs
+    except torch.cuda.OutOfMemoryError as e:
+        fail(f"launch {label}: out of memory where the dry run predicted "
+             f"{pred['peak_bytes'] / 1e9:.3f} GB: {e}")
+    torch.cuda.empty_cache()
+    flash = flash_attention.launches - flash0
+    bound = pred["roofline"]["bound_s"]
+    ratio = peak / pred["peak_bytes"]
+    print(f"launch {label}: peak {peak / 1e9:.3f} GB measured, "
+          f"{pred['peak_bytes'] / 1e9:.3f} GB predicted (x{ratio:.4f}); "
+          f"{seconds:.6f} s per step measured, bound {bound:.6f} s "
+          f"({pred['roofline']['dominant']}; {seconds / bound:.2f}x); "
+          f"flash launches {flash}", flush=True)
+    if ratio > LAUNCH_PEAK_RATIO:
+        fail(f"launch {label}: measured peak {peak} is {ratio:.3f}x the "
+             f"prediction")
+    if seconds < LAUNCH_BOUND_SHARE * bound:
+        fail(f"launch {label}: {seconds} s per step is under "
+             f"{LAUNCH_BOUND_SHARE} x bound_s {bound}: the count is wrong")
+    if cell.kind == "prefill" and cfg.family != "ssm" and not flash:
+        fail(f"launch {label}: prefill launched no flash attention")
+    return peak, seconds, flash
+
+
+def launch_training(workdir, seed):
+    """Phase 11c: a checkpointed Trainer in bf16 at reduced() width for one
+    moe, ssm, encdec and vlm config on the card: 4 steps committing every
+    2, then a fresh Trainer resumes and takes 2 more; the state must equal
+    an uninterrupted run of 6 bit for bit, and the fingerprint kernel must
+    launch in each."""
+    from repro_torch.kernels.fingerprint import fingerprint_flat
+    from repro_torch.store import flatten_state
+    from repro_torch.train import Trainer
+
+    for name in LAUNCH_TRAIN_FAMILIES:
+        cfg = family_config(name, None, True)
+        t0 = time.perf_counter()
+        fp0 = fingerprint_flat.launches
+        root = os.path.join(workdir, f"launch-train-{name}")
+
+        def trainer(**kw):
+            return Trainer(cfg, batch=4, seq=64, seed=seed, **kw)
+
+        first = trainer(checkpoint_dir=root, commit_every=2)
+        first.run(4)
+        again = trainer(checkpoint_dir=root, commit_every=2)
+        if again.start_step != 4:
+            fail(f"train {name}: resumed at step {again.start_step}")
+        again.run(2)
+        solo = trainer()
+        solo.run(6)
+        a, b = flatten_state(again.state), flatten_state(solo.state)
+        differ = [k for k in a if a[k].tobytes() != b[k].tobytes()]
+        fps = fingerprint_flat.launches - fp0
+        print(f"train {name} (reduced, bf16): 4 + 2 resumed steps equal 6 "
+              f"uninterrupted: {not differ} ({len(a)} leaves); fingerprint "
+              f"launches {fps}; {time.perf_counter() - t0:.3f} s", flush=True)
+        if differ or not fps:
+            fail(f"train {name}: {len(differ)} leaves differ "
+                 f"({differ[:3]}), {fps} fingerprint launches")
+
+
+def launch_path(workdir, seed):
+    """Phase 11: the dry run (11a), the real cells (11b) and the family
+    training with checkpoints (11c). Returns the launch counts."""
+    import torch
+
+    sweep = launch_sweep_file()
+    zero_launches()
+    preds = launch_dryrun(sweep)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for pred, (arch, layers, shape, cap) in zip(preds, LAUNCH_CELLS):
+        # the largest batch that fits: this run's search where the cap did
+        # not fit, else the committed sweep's (full depth only)
+        largest = pred["largest_batch"]
+        source = "searched here"
+        if largest is None:
+            largest = (sweep[f"{arch}|{shape}|1xH100"]["largest_batch"]
+                       if layers is None else None)
+            source = (f"in {DRYRUN_FILE}" if layers is None
+                      else "not searched at this depth")
+        print(f"launch {arch} {shape}: batch {pred['batch']} (cap {cap}); "
+              f"largest {pred['largest_batch_of']} that fits {largest} "
+              f"({source})", flush=True)
+        peak, seconds, flash = launch_real_cell(
+            pred, launch_config(arch, layers), gen)
+        rows.append({"arch": arch, "layers": layers, "shape": shape,
+                     "batch": pred["batch"], "cap": cap,
+                     "largest": largest, "largest_from": source,
+                     "predicted_peak": pred["peak_bytes"],
+                     "measured_peak": peak, "bound_s": pred["roofline"][
+                         "bound_s"], "seconds": seconds,
+                     "dominant": pred["roofline"]["dominant"],
+                     "flash_launches": flash})
+    print(f"launch cells: {json.dumps(rows)}", flush=True)
+    launch_training(workdir, seed)      # 11c
+    return read_launches("launch")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3913,6 +4468,15 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     t0 = time.perf_counter()
     errs = check_kernels(gen)
+    bad = []
+    for name, err in check_large(gen, bad).items():
+        errs[name] = max(errs[name], err)
+    errs["flash_attention_bf16"] = max(errs["flash_attention_bf16"],
+                                       check_flash_long(gen, bad))
+    for line in bad:
+        print(f"MISMATCH {line}", flush=True)
+    if bad:
+        fail(f"{len(bad)} large-operand and long flash checks failed")
     timing = time_kernels(gen)
     phase_s = {"3": round(time.perf_counter() - t0, 3)}
 
@@ -3957,6 +4521,7 @@ def main() -> int:
         launches["workflow"] = timed("7", workflow_path, workdir, card,
                                      args.seed)
         launches["examples"] = timed("10", examples_path, workdir, card)
+        launches["launch"] = timed("11", launch_path, workdir, args.seed)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"phase seconds: {json.dumps(phase_s)}; since start "

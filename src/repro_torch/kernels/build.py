@@ -162,9 +162,6 @@ def launch(name: str, fn: str, device: torch.device, *args) -> None:
 
 # -- checks every wrapper makes before it launches ---------------------------
 
-MAX_ELEMENTS = 2**31 - 1   # the kernels' counts are int32
-
-
 def on_card(*tensors: torch.Tensor) -> bool:
     """Whether a wrapper launches its kernel for ``tensors``.
 
@@ -181,9 +178,6 @@ def on_card(*tensors: torch.Tensor) -> bool:
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
-        if t.numel() > MAX_ELEMENTS:
-            raise ValueError(f"{t.numel()} elements: the kernels take at "
-                             f"most {MAX_ELEMENTS}")
     return True
 
 

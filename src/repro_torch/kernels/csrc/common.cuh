@@ -6,8 +6,8 @@
 // device-memory bandwidth. Each one is a grid-stride loop over the flat
 // tensor (neighbouring threads read neighbouring elements, the ragged tail
 // is masked by the loop bound), and any counts are reduced in registers,
-// then across the block, then added with one atomicAdd per block. Integer
-// sums are exact, so the order in which blocks add does not matter.
+// then across the block, then added with one 64-bit atomicAdd per block.
+// Integer sums are exact, so the order in which blocks add does not matter.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,9 +44,12 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
-// Adds the block-wide sums of a and b to *out_a and *out_b (out_b may be
-// null). Every thread of the block must call it.
-__device__ __forceinline__ void block_count_add(int a, int b, int* out_a, int* out_b) {
+// Adds the block-wide sums of a and b to the 64-bit counters *out_a and
+// *out_b (out_b may be null). Every thread of the block must call it. A
+// block's own sums stay 32-bit: each block covers at most a few million
+// elements, while a whole tensor may hold more than 2^31.
+__device__ __forceinline__ void block_count_add(int a, int b, unsigned long long* out_a,
+                                                unsigned long long* out_b) {
   __shared__ int part_a[kThreads / 32];
   __shared__ int part_b[kThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -64,8 +67,8 @@ __device__ __forceinline__ void block_count_add(int a, int b, int* out_a, int* o
     a = warp_sum(a);
     b = warp_sum(b);
     if (lane == 0) {
-      if (a) atomicAdd(out_a, a);
-      if (b && out_b) atomicAdd(out_b, b);
+      if (a) atomicAdd(out_a, (unsigned long long)a);
+      if (b && out_b) atomicAdd(out_b, (unsigned long long)b);
     }
   }
 }

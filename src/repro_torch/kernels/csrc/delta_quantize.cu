@@ -16,8 +16,9 @@
 // 8 B f16 -> f16 or bf16 -> bf16) for three. The TPU versions pad to (rows, 1024) tiles and
 // reduce one zero count per tile of block_rows x 1024 elements. Here the
 // tensor stays flat and the tail is masked; each block walks one
-// contiguous span of the tensor and adds its zeros to the counter of each
-// tile it touches (one atomicAdd per block per tile). The wrapper passes
+// contiguous span of the tensor and adds its zeros to the 64-bit counter of
+// each tile it touches (one atomicAdd per block per tile), so a tensor may
+// hold more than 2^31 elements. The wrapper passes
 // the reference's tile size, or a size past n for one total; padding zeros
 // are added on the host.
 #include <cuda_bf16.h>
@@ -46,7 +47,7 @@ template <typename T1, typename T2>
 __global__ void delta_quantize_kernel(const T1* __restrict__ p1,
                                       const T2* __restrict__ p2,
                                       int32_t* __restrict__ q,
-                                      int* __restrict__ tile_zeros, int64_t n,
+                                      unsigned long long* __restrict__ tile_zeros, int64_t n,
                                       int64_t span, int64_t tile, float scale) {
   // span and tile are multiples of blockDim.x (or tile >= n), so every
   // blockDim-wide step of the walk lies in one tile and the tile changes
@@ -85,7 +86,7 @@ __global__ void dequant_apply_kernel(const T* __restrict__ p1,
 
 template <typename T1, typename T2>
 static void launch_quantize(const void* p1, const void* p2, int32_t* q,
-                            int* tile_zeros, int64_t n, int64_t tile,
+                            unsigned long long* tile_zeros, int64_t n, int64_t tile,
                             float scale, int device, cudaStream_t stream) {
   const int64_t blocks = grid_for(n, device);
   int64_t span = (n + blocks - 1) / blocks;
@@ -108,7 +109,7 @@ static void launch_dequant(const void* p1, const int32_t* q, void* out,
 // unknown code.
 template <typename T1>
 static bool quantize_second(int p2_type, const void* p1, const void* p2, int32_t* q,
-                            int* tile_zeros, int64_t n, int64_t tile, float scale, int device,
+                            unsigned long long* tile_zeros, int64_t n, int64_t tile, float scale, int device,
                             cudaStream_t stream) {
   switch (p2_type) {
     case kF32: launch_quantize<T1, float>(p1, p2, q, tile_zeros, n, tile, scale, device, stream); return true;
@@ -130,11 +131,12 @@ static bool dequant_second(int out_type, const void* p1, const int32_t* q, void*
 }
 
 // q = floor((f32(p1) - f32(p2)) / scale + 0.5); tile_zeros[i / tile] +=
-// count(q[i] == 0). p1_type and p2_type are kF32, kF16 or kBF16. tile is a
-// multiple of 256, or at least n (one counter). tile_zeros must hold 0s
-// before the launch.
+// count(q[i] == 0), 64-bit counters. p1_type and p2_type are kF32, kF16 or
+// kBF16. tile is a multiple of 256, or at least n (one counter). tile_zeros
+// must hold 0s before the launch.
 extern "C" int mgit_delta_quantize(const void* p1, int p1_type, const void* p2,
-                                   int p2_type, int32_t* q, int* tile_zeros,
+                                   int p2_type, int32_t* q,
+                                   unsigned long long* tile_zeros,
                                    int64_t n, int64_t tile, float scale,
                                    int device, cudaStream_t stream) {
   cudaSetDevice(device);

@@ -45,8 +45,10 @@ def delta_quantize_flat(p1: torch.Tensor, p2: torch.Tensor, eps: float = 1e-4,
                         tile: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q = floor((f32 p1 - f32 p2) / scale + 0.5) as int32, and its zero
-    count: a 0-dim int32 tensor, or with ``tile`` the (⌈n / tile⌉,) counts
-    of each run of ``tile`` flat elements (a multiple of 256)."""
+    count: a 0-dim int64 tensor, or with ``tile`` the (⌈n / tile⌉,) int32
+    counts of each run of ``tile`` flat elements (a multiple of 256). The
+    kernel counts in 64 bits, so ``p1`` may hold more than 2^31 elements; a
+    tile's count fits 32 bits whenever ``tile`` does."""
     if p1.shape != p2.shape:
         raise ValueError(f"shapes differ: {tuple(p1.shape)} vs {tuple(p2.shape)}")
     if tile is not None and (tile <= 0 or tile % 256):
@@ -59,7 +61,7 @@ def delta_quantize_flat(p1: torch.Tensor, p2: torch.Tensor, eps: float = 1e-4,
     n = p1.numel()
     q = torch.empty(p1.shape, dtype=torch.int32, device=p1.device)
     counters = 1 if tile is None else -(-n // tile)
-    zeros = torch.zeros(counters, dtype=torch.int32, device=p1.device)
+    zeros = torch.zeros(counters, dtype=torch.int64, device=p1.device)
     if n:
         build.launch("delta_quantize", "mgit_delta_quantize", p1.device,
                      p1.data_ptr(), _TYPE_CODES[p1.dtype], p2.data_ptr(),
@@ -68,7 +70,7 @@ def delta_quantize_flat(p1: torch.Tensor, p2: torch.Tensor, eps: float = 1e-4,
                      float(np.float32(quant_scale(eps))))
         build.count_launch(delta_quantize_flat,
                            _operands(p1.dtype, p2.dtype))
-    return q, zeros[0] if tile is None else zeros
+    return q, zeros[0] if tile is None else zeros.to(torch.int32)
 
 
 delta_quantize_flat.launches = 0

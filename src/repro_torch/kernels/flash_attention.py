@@ -24,13 +24,17 @@ which ignores ``prefix_len`` and so drops key blocks a prefix makes
 visible once the prefix reaches past a query block.
 
 On CPU tensors the wrapper runs ``flash_attention_ref``; on CUDA tensors
-it launches its kernel or raises. Its ``launches`` attribute counts
-kernel launches, and ``launches_by_dtype`` counts them by q's dtype.
+it launches its kernel or raises; on ``meta`` tensors (the dry run of
+``repro_torch.launch``) it computes nothing and its FLOPs are counted
+from the shapes. Its ``launches`` attribute counts kernel launches, and
+``launches_by_dtype`` counts them by q's dtype.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 
@@ -39,6 +43,9 @@ MAX_HEAD_DIM = 256
 # where a larger head dim waits (ROADMAP.md, queue 1, item 3)
 WIDER_HEADS_ITEM = "flash attention above head dim 256"
 HEAD_DIM_MULTIPLE = 8   # the kernel's TMA rows are whole 16-byte units
+# the largest operand the wrapper launches the kernel on: its checks on the
+# card stay below it (unlike the storage kernels'). A larger one raises.
+MAX_ELEMENTS = 2**31 - 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # H100 SXM peaks (NVIDIA's data sheet, dense)
@@ -109,11 +116,26 @@ def kernel_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     prefix_len: int = 0) -> torch.Tensor:
-    """q: (B, Hq, Sq, hd); k, v: (B, Hkv, Skv, hd) -> (B, Hq, Sq, hd)."""
+    """q: (B, Hq, Sq, hd); k, v: (B, Hkv, Skv, hd) -> (B, Hq, Sq, hd).
+
+    ``meta`` operands (a dry run) go through the operator
+    ``torch.ops.mgit.flash_attention``, which only gives the result's
+    shape and has ``flops`` registered as its count for
+    ``torch.utils.flop_counter``. CUDA operands launch the kernel directly,
+    without the dispatcher's cost per call; the operator's CUDA
+    implementation is the same launch, and its CPU one the plain
+    version."""
     _check(q, k, v, window)
+    if q.is_meta and k.is_meta and v.is_meta:
+        return torch.ops.mgit.flash_attention(q, k, v, causal, window,
+                                              prefix_len)
     if not build.on_card(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    prefix_len=prefix_len)
+    return _launch(q, k, v, causal, window, prefix_len)
+
+
+def _launch(q, k, v, causal, window, prefix_len):
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v are {q.dtype}, {k.dtype}, {v.dtype}: the "
                         f"kernel takes float32, bfloat16 or float16, all "
@@ -124,6 +146,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head_dim {hd}: the kernel takes at most "
                          f"{MAX_HEAD_DIM} (ROADMAP item "
                          f"'{WIDER_HEADS_ITEM}')")
+    for t in (q, k, v):
+        if t.numel() > MAX_ELEMENTS:
+            raise ValueError(f"{t.numel()} elements: the kernel takes at "
+                             f"most {MAX_ELEMENTS}")
     kq, kk, kv = kernel_operands(q, k, v)
     out = torch.empty_like(kq)
     if out.numel():
@@ -137,15 +163,57 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out if kq.shape[-1] == hd else out[..., :hd].contiguous()
 
 
+@torch.library.custom_op("mgit::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: int, prefix_len: int) -> torch.Tensor:
+    return flash_attention_ref(q, k, v, causal=causal, window=window,
+                               prefix_len=prefix_len)
+
+
+_flash_op.register_kernel("cuda", _launch)
+
+
+@_flash_op.register_fake
+def _flash_shape(q, k, v, causal, window, prefix_len):
+    return torch.empty_like(q)
+
+
 flash_attention.launches = 0
 flash_attention.launches_by_dtype = {}
+
+
+def visible_pairs(Sq: int, Skv: int, *, causal: bool = True, window: int = 0,
+                  prefix_len: int = 0) -> int:
+    """The (query, key) pairs the mask leaves visible, counted row by row
+    in O(Sq): row ``i`` sees the keys from ``i - window + 1`` (or 0) up to
+    ``i`` under a causal mask, or up to ``prefix_len - 1`` when that is
+    further, or up to the last key without one."""
+    i = np.arange(Sq, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros_like(i)
+    if causal:
+        hi = np.maximum(np.minimum(i, Skv - 1), min(prefix_len, Skv) - 1)
+    else:
+        hi = np.full_like(i, Skv - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+@register_flop_formula(torch.ops.mgit.flash_attention)
+def _flash_op_flops(q_shape, k_shape, v_shape, causal, window, prefix_len,
+                    out_shape=None, **kwargs) -> int:
+    """``flops`` of one call, from the operands' shapes."""
+    B, Hq, Sq, hd = q_shape
+    return 4 * B * Hq * hd * visible_pairs(Sq, k_shape[2], causal=causal,
+                                           window=window,
+                                           prefix_len=prefix_len)
 
 
 def flops(B: int, Hq: int, Sq: int, Skv: int, hd: int, *, causal: bool = True,
           window: int = 0, prefix_len: int = 0) -> int:
     """Floating-point operations of the two products over the (query, key)
     pairs the mask leaves visible: 4 * hd per pair (a multiply and an add
-    in each of q @ k and p @ v)."""
+    in each of q @ k and p @ v). It builds the whole mask: the oracle of
+    ``visible_pairs``, which the dry run and ``roofline`` count with."""
     q_pos = torch.arange(Sq)[:, None]
     k_pos = torch.arange(Skv)[None, :]
     ok = torch.ones((Sq, Skv), dtype=torch.bool)
@@ -168,8 +236,9 @@ def roofline(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, hd: int,
     and as three TF32
     passes at the TF32 rate for f32 (the cheapest tensor-core route that
     keeps f32's 2e-5 tolerance, the kernel's)."""
-    ops = flops(B, Hq, Sq, Skv, hd, causal=causal, window=window,
-                prefix_len=prefix_len)
+    ops = 4 * B * Hq * hd * visible_pairs(Sq, Skv, causal=causal,
+                                          window=window,
+                                          prefix_len=prefix_len)
     if dtype in (torch.bfloat16, torch.float16):
         ops_s = ops / BF16_OPS_PER_S
     elif dtype == torch.float32:
@@ -195,4 +264,4 @@ def hbm_bytes(B, Hq, Hkv, Sq, Skv, hd, dtype_bytes=2, qc=512):
 
 
 __all__ = ["flash_attention", "flash_attention_ref", "flops", "hbm_bytes",
-           "kernel_operands", "roofline", "NEG_INF"]
+           "kernel_operands", "roofline", "visible_pairs", "NEG_INF"]

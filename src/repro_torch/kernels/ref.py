@@ -64,13 +64,14 @@ def scale_tensor(eps: float, device) -> torch.Tensor:
 def delta_quantize_ref(p1: torch.Tensor, p2: torch.Tensor, eps: float = 1e-4):
     """Quantized delta between parent p1 and child p2 (paper Algorithm 1).
 
-    Returns (q int32 tensor, zero count as a 0-dim int32 tensor).
+    Returns (q int32 tensor, zero count as a 0-dim int64 tensor: a tensor
+    may hold more than 2^31 elements).
     Computation is in float32 regardless of input dtype so bf16 checkpoints
     quantize identically to f32 ones.
     """
     d = p1.to(torch.float32) - p2.to(torch.float32)
     q = torch.floor(d / scale_tensor(eps, d.device) + 0.5).to(torch.int32)
-    return q, torch.sum(q == 0, dtype=torch.int32)
+    return q, torch.sum(q == 0, dtype=torch.int64)
 
 
 def tile_zero_counts(q: torch.Tensor, tile: int) -> torch.Tensor:
@@ -115,12 +116,12 @@ def snapshot_fused_ref(p1: torch.Tensor, p2: torch.Tensor, eps: float = 1e-4):
     """Quantize, narrow to int8, and count zeros and overflows in one call.
 
     Returns (q8 int8, zero count, overflow count); the counts are 0-dim
-    int32 tensors. An overflow count above 0 means some q did not fit int8
+    int64 tensors. An overflow count above 0 means some q did not fit int8
     and the caller must fall back to the int32 ``delta_quantize_ref``.
     """
     q32, zeros = delta_quantize_ref(p1, p2, eps)
     q8 = torch.clamp(q32, -127, 127).to(torch.int8)
-    overflow = torch.sum(q32 != q8.to(torch.int32), dtype=torch.int32)
+    overflow = torch.sum(q32 != q8.to(torch.int32), dtype=torch.int64)
     return q8, zeros, overflow
 
 

@@ -25,16 +25,22 @@ at the write position, an SSM layer's new state and conv window, an
 encoder-decoder's cross K/V at prefill). Prefill self-attention runs
 through the flash-attention kernel on the card (windows and a vlm's
 prefix included); the encoder and cross-attention run in plain torch, as
-the reference computes them.
+the reference computes them. Under autograd each layer runs under
+``cfg.remat`` (``_remat``), as the reference's scan body does.
+
+``param_structs`` and ``cache_structs`` give the parameters and the cache
+as ``meta`` tensors, the dry run's inputs (``repro_torch.launch``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.common.tree import leaves
 from repro_torch.dist.sharding import shard
 from repro_torch.kernels.ref import torch_dtype
 from repro_torch.models.config import ModelConfig
@@ -218,9 +224,62 @@ def flat_paths(tree: Params, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+def param_structs(cfg: ModelConfig) -> Params:
+    """The parameter tree as ``meta`` tensors (no allocation): the dry
+    run's input. ``A_log``, ``dt_bias`` and ``D`` are float32, everything
+    else ``cfg.dtype``, as ``init_params`` makes them."""
+    dtype = torch_dtype(cfg.dtype)
+    f32 = {"A_log", "dt_bias", "D"}
+    return _nested({p: torch.empty(s, dtype=torch.float32
+                                   if p.rsplit("/", 1)[-1] in f32 else dtype,
+                                   device="meta")
+                    for p, s in param_shapes(cfg).items()})
+
+
 # ---------------------------------------------------------------------------
 # Forward (training / prefill)
 # ---------------------------------------------------------------------------
+
+def _dot_without_batch(ctx, op, *args, **kwargs):
+    """``remat="dots"``'s policy: keep the output of a matrix product with
+    no batch dimension (``mm``, ``addmm``, or the ``bmm`` of batch 1 that
+    an ``einsum`` against a 2-D weight reaches), recompute the rest; JAX's
+    ``checkpoint_dots_with_no_batch_dims``."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` (one layer) under ``cfg.remat`` when autograd records it (grad
+    mode on and some input requiring grad):
+    ``"none"`` keeps every activation, ``"full"`` keeps the layer's inputs
+    and recomputes the rest in the backward pass
+    (``torch.utils.checkpoint``), ``"dots"`` also keeps the outputs of the
+    products without batch dimensions. It changes memory, never numbers."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}: expected none, "
+                         f"full or dots")
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    context = {}
+    if cfg.remat == "dots":
+        context["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dot_without_batch)
+
+    def run(*args):
+        if not (torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad
+                for t in leaves(args))):
+            return fn(*args)        # nothing to differentiate: no remat
+        return checkpoint(fn, *args, use_reentrant=False, **context)
+    return run
+
 
 def _dense_block(x, lp, cfg: ModelConfig, positions, prefix_len,
                  cache=None, cache_pos=0, causal=True):
@@ -290,12 +349,11 @@ def _run_stack(x, layers_params, cfg: ModelConfig, positions, *,
     ``xa`` (the encoder's output) its cross-attention computes K/V from
     ``xa`` (and writes them into the cache's ``cross`` buffers when there
     is a cache); without, it reads the cross K/V cached at prefill.
-    ``cfg.remat`` does not change the numbers, so activations are kept."""
+    Each layer runs under ``_remat`` (``cfg.remat``), as the reference's
+    scan body does."""
     family = family or cfg.family
-    n = next(iter(flat_paths(layers_params).values())).shape[0]
-    for i in range(n):
-        lp = _layer(layers_params, i)
-        c = None if cache is None else _layer(cache, i)
+
+    def body(x, lp, c):
         if family == "hybrid":
             x = _hybrid_group(x, lp, cfg, positions, cache=c,
                               cache_pos=cache_pos)
@@ -326,6 +384,13 @@ def _run_stack(x, layers_params, cfg: ModelConfig, positions, *,
         else:  # dense / moe / vlm / encoder
             x = _dense_block(x, lp, cfg, positions, prefix_len, cache=c,
                              cache_pos=cache_pos, causal=causal)
+        return x
+
+    body = _remat(body, cfg)
+    n = next(iter(flat_paths(layers_params).values())).shape[0]
+    for i in range(n):
+        x = body(x, _layer(layers_params, i),
+                 None if cache is None else _layer(cache, i))
     return x
 
 
@@ -451,6 +516,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
     return _nested({p: torch.zeros(s, dtype=d, device=device)
                     for p, (s, d) in cache_shapes(cfg, batch, max_len,
                                                   enc_len).items()})
+
+
+def cache_structs(cfg: ModelConfig, batch: int, max_len: int,
+                  enc_len: int = 0) -> Params:
+    """The decode cache as ``meta`` tensors (no allocation)."""
+    return init_cache(cfg, batch, max_len, enc_len, device="meta")
 
 
 def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,

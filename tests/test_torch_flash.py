@@ -161,9 +161,12 @@ def test_wrapper_checks_shapes_and_devices():
         flash_attention(q[0], kv, kv)
     with pytest.raises(ValueError, match="could see no key"):
         flash_attention(q, kv[:, :, :4], kv[:, :, :4], window=2)
-    # a tensor on any other device never reaches the plain version
+    # meta tensors (a dry run) give the result's shape and compute
+    # nothing; a mix of devices never reaches the plain version
+    out = flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape
     with pytest.raises(ValueError, match="CUDA device"):
-        flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
+        flash_attention(q.to("meta"), kv, kv)
 
 
 def test_flops_count_visible_pairs_and_hbm_bytes_match_reference():

@@ -453,3 +453,57 @@ def test_f16_dequant_and_quantize_on_the_card_path(dtype, out_dtype,
     np.testing.assert_array_equal(out.view(np.uint8), oj.view(np.uint8))
     twin = host_dequant(p1, q, 1e-4, out_dtype=want_dtype)
     np.testing.assert_array_equal(out.view(np.uint8), twin.view(np.uint8))
+
+
+def test_whole_tensor_counts_are_int64_and_tile_counts_unchanged():
+    """The kernels count zeros and overflows in 64 bits, so a leaf may hold
+    more than 2^31 elements; the wrappers' plain versions give the same
+    dtypes. A tile's count (at most 256 x 1024) stays int32, and the
+    ``ops`` results are the reference's as before."""
+    rng = np.random.default_rng(5)
+    p2 = rng.normal(size=70001).astype(np.float32)
+    p1 = (p2 + rng.normal(scale=3e-4, size=70001)
+          * (rng.random(70001) < 0.5)).astype(np.float32)
+    t1, t2 = torch.from_numpy(p1), torch.from_numpy(p2)
+    q, nz = delta_quantize_flat(t1, t2)
+    assert nz.dtype == torch.int64 and nz.dim() == 0
+    assert int(nz) == int((q == 0).sum())
+    _, zeros, ovf = snapshot_fused_flat(t1, t2)
+    assert zeros.dtype == ovf.dtype == torch.int64
+    assert int(zeros) == int(nz)
+    _, tiles = delta_quantize_flat(t1, t2, tile=8192)
+    assert tiles.dtype == torch.int32
+    assert tiles.tolist() == ref.tile_zero_counts(q, 8192).tolist()
+    assert int(tiles.sum()) == int(nz)
+    qj, nzj, blocks_j = ref_ops.delta_quantize(p1, p2, backend="interpret",
+                                               return_block_zeros=True)
+    assert ops.delta_quantize(p1, p2, backend="ref")[1] == nzj
+
+
+class _CardTensor:
+    """What ``build.on_card`` reads of a contiguous CUDA tensor of ``n``
+    elements, without a card."""
+
+    def __init__(self, n):
+        self.device, self.n = torch.device("cuda", 0), n
+
+    def is_contiguous(self):
+        return True
+
+    def numel(self):
+        return self.n
+
+
+def test_storage_kernels_take_operands_above_2_31_elements():
+    """No element limit is left for the storage kernels; flash attention,
+    held on the card only below 2^31 elements, keeps its own in its
+    launch (a dry run's meta operands of any size still pass)."""
+    from repro_torch.kernels import flash_attention as fa
+    big = _CardTensor(2**31 + 2**20)
+    assert build.on_card(big, _CardTensor(2**32 + 1))
+    q = torch.empty((1, 8, 2**20, 256), device="meta", dtype=torch.bfloat16)
+    k = torch.empty((1, 1, 2**20, 256), device="meta", dtype=torch.bfloat16)
+    assert q.numel() == fa.MAX_ELEMENTS + 1
+    with pytest.raises(ValueError, match="at most 2147483647"):
+        fa._launch(q, k, k, True, 0, 0)
+    assert fa.flash_attention(q, k, k).shape == q.shape
