@@ -18,6 +18,12 @@ work on flat tensors with a masked tail, so zero counts need no padding
 correction, and per-tile zero counts add the padding on the host.
 ``fingerprint`` hashes the reference's padded extent, because its hash
 depends on it, but its kernel never materializes the padding.
+
+Every host-device crossing goes through :func:`_to` or :func:`to_host`,
+scalar reads included, and while tracing is on each one that moves a
+tensor between host and card is counted (``ops.h2d_copies``,
+``ops.h2d_bytes``, ``ops.d2h_copies``, ``ops.d2h_bytes``), so the counts
+account for every copy a device trace shows inside these entry points.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.common import bf16
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.build import KernelError
@@ -82,11 +89,20 @@ def _to(x, device: torch.device) -> torch.Tensor:
     (``common/bf16.py``) becomes a ``torch.bfloat16`` tensor."""
     if not isinstance(x, torch.Tensor):
         x = bf16.to_torch(x)
+    if obs.is_enabled() and x.device.type != device.type and x.numel():
+        _count_copy("h2d" if x.device.type == "cpu" else "d2h", x)
     return x.to(device).contiguous()
+
+
+def _count_copy(way: str, t: torch.Tensor) -> None:
+    obs.count(f"ops.{way}_copies")
+    obs.count(f"ops.{way}_bytes", t.numel() * t.element_size())
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
     """``t`` as a numpy array on the host; bfloat16 as the bf16 carrier."""
+    if obs.is_enabled() and t.device.type != "cpu" and t.numel():
+        _count_copy("d2h", t)
     if t.dtype == torch.bfloat16:
         return bf16.from_torch(t)
     return t.cpu().numpy()
@@ -122,7 +138,7 @@ def delta_quantize(p1, p2, eps: float = 1e-4, backend: Optional[str] = None,
     a, b = _to(p1, dev), _to(p2, dev)
     if not return_block_zeros or backend == "ref":
         q, zeros = delta_quantize_flat(a, b, eps)
-        nz = int(zeros)
+        nz = int(to_host(zeros))
         return (to_host(q), nz, None) if return_block_zeros else (to_host(q), nz)
     tile, pad = _tiling(a.numel())
     q, tiles = delta_quantize_flat(a, b, eps, tile=tile)
@@ -175,11 +191,11 @@ def snapshot_fused(p1, p2, eps: float = 1e-4, backend: Optional[str] = None,
     fp = fingerprint(t2, backend=backend) if with_fingerprint else None
     q8, zeros, overflow = snapshot_fused_flat(t1.to(torch.float32),
                                               t2.to(torch.float32), eps)
-    if int(overflow) > 0:
+    if int(to_host(overflow)) > 0:
         # as in the reference, the fallback quantizes the operands as given
         q, nz = delta_quantize_flat(t1, t2, eps)
-        return to_host(q), int(nz), fp, False
-    return to_host(q8), int(zeros), fp, True
+        return to_host(q), int(to_host(nz)), fp, False
+    return to_host(q8), int(to_host(zeros)), fp, True
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +210,7 @@ def fingerprint(x, backend: Optional[str] = None) -> int:
     the (h1, h2) pair comes back to the host. The salt is Python's
     ``hash`` of a tuple, so compare fingerprints within one process only."""
     t = _to(x, _device(backend))
-    h1, h2 = fingerprint_flat(t).tolist()
+    h1, h2 = to_host(fingerprint_flat(t)).tolist()
     salt = hash((tuple(t.shape), _ref.dtype_name(t.dtype))) & 0xFFFFFFFF
     return ((h1 ^ salt) << 32) | h2
 

@@ -1,4 +1,4 @@
-"""Process-wide metrics registry: counters, gauges, fixed-bucket histograms.
+"""Process-wide metrics registry: counters and fixed-bucket histograms.
 
 One :class:`Registry` per process (module-level :data:`REGISTRY`) holds
 every metric family; subsystems that used to keep ad-hoc dicts
@@ -30,7 +30,7 @@ import bisect
 import threading
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
-__all__ = ["Registry", "MetricGroup", "Counter", "Gauge", "Histogram",
+__all__ = ["Registry", "MetricGroup", "Counter", "Histogram",
            "REGISTRY", "DEFAULT_BUCKETS", "render_prometheus"]
 
 # Latency buckets in seconds: 100µs .. 10s, roughly log-spaced.  Fixed at
@@ -90,16 +90,6 @@ class Counter:
 
     def get(self) -> float:
         return self.value
-
-
-class Gauge(Counter):
-    """A value that can go down (pool residency, queue depth)."""
-
-    kind = "gauge"
-    __slots__ = ()
-
-    def dec(self, n: float = 1) -> None:
-        self.inc(-n)
 
 
 class Histogram:
@@ -190,10 +180,6 @@ class Registry:
     def counter(self, name: str, help: str = "",
                 lock: Optional[threading.Lock] = None, **labels) -> Counter:
         return self._child(Counter, name, help, labels, lock=lock)
-
-    def gauge(self, name: str, help: str = "",
-              lock: Optional[threading.Lock] = None, **labels) -> Gauge:
-        return self._child(Gauge, name, help, labels, lock=lock)
 
     def histogram(self, name: str, help: str = "",
                   buckets: Sequence[float] = DEFAULT_BUCKETS,

@@ -13,8 +13,22 @@ and a traced run exports as ONE connected tree.
 Overhead contract (DESIGN.md §14): tracing is off by default and the
 disabled path through :func:`span` is a single branch returning a cached
 null context manager — no ids, no clocks, no allocation beyond the call
-itself.  ``bench_obs`` measures (never asserts) that this keeps commit
-throughput within noise of an uninstrumented build.
+itself; :func:`count` is the same one branch.  What tracing costs when
+it is on is recorded in PERF.md (traced against untraced runs of each
+benchmark cell).
+
+Counts: ``count("ops.h2d_bytes", n)`` adds to the traced scope's totals,
+which are zeroed when tracing switches on and stay readable through
+:func:`counts` after :func:`disable` and :func:`reset_trace`, until tracing
+is next switched on, so a reader after the traced window sees that
+window's work and none of the set-up before it.
+
+Clock: :func:`reset_trace` reads ``perf_counter_ns`` and ``time_ns`` back
+to back (the pair with the smallest read gap of a few tries); span
+``ts`` values stay relative to that origin, and the export writes the
+pair under ``metadata.clock``.  ``unix_ns + ts * 1000`` puts a span on
+Unix nanoseconds, the clock of ``torch.profiler``'s kineto events, so a
+span lines up with a device trace of the same process without a marker.
 
 Export is the Chrome trace-event JSON Perfetto loads directly
 (``ph:"X"`` complete events, µs timestamps, per-thread ``thread_name``
@@ -29,10 +43,10 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
-__all__ = ["span", "propagate", "enable", "disable", "is_enabled",
-           "tracing", "current_span", "reset_trace", "export_chrome_trace",
+__all__ = ["span", "count", "counts", "propagate", "enable", "disable",
+           "is_enabled", "tracing", "reset_trace", "export_chrome_trace",
            "save_trace", "MAX_EVENTS"]
 
 #: Bounded event buffer: a runaway traced loop degrades to dropped events
@@ -40,18 +54,34 @@ __all__ = ["span", "propagate", "enable", "disable", "is_enabled",
 MAX_EVENTS = 200_000
 
 
+def _clock_pair(tries: int = 5) -> Tuple[int, int, int]:
+    """(perf_counter_ns, time_ns, read gap ns): the Unix time read between
+    two reads of the performance counter, whose midpoint it is paired with;
+    the tightest of ``tries`` reads."""
+    best = None
+    for _ in range(tries):
+        a = time.perf_counter_ns()
+        unix = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[2]:
+            best = ((a + b) // 2, unix, b - a)
+    return best
+
+
 class _State:
     __slots__ = ("enabled", "lock", "events", "next_id", "t0_ns",
-                 "thread_names", "dropped")
+                 "unix_ns", "read_gap_ns", "thread_names", "dropped",
+                 "counts")
 
     def __init__(self) -> None:
         self.enabled = False
         self.lock = threading.Lock()
         self.events: List[Dict[str, Any]] = []
         self.next_id = 1
-        self.t0_ns = time.perf_counter_ns()
+        self.t0_ns, self.unix_ns, self.read_gap_ns = _clock_pair()
         self.thread_names: Dict[int, str] = {}
         self.dropped = 0
+        self.counts: Dict[str, int] = {}
 
 
 _state = _State()
@@ -126,6 +156,21 @@ def span(name: str, cat: str = "app", **args):
     return _Span(name, cat, args)
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the traced scope's total ``name``.  When tracing is
+    off this is one branch, as :func:`span` is."""
+    if not _state.enabled:
+        return
+    with _state.lock:
+        _state.counts[name] = _state.counts.get(name, 0) + n
+
+
+def counts() -> Dict[str, int]:
+    """The totals of the last traced scope (a copy)."""
+    with _state.lock:
+        return dict(_state.counts)
+
+
 def propagate(fn):
     """Wrap ``fn`` so it runs under the CALLER's current span even on a
     foreign thread (executors do not copy contextvars).  When tracing is
@@ -144,8 +189,16 @@ def propagate(fn):
     return _carry
 
 
+def _switch(on: bool) -> None:
+    """Set tracing on or off; switching it on zeroes the counts."""
+    with _state.lock:
+        if on and not _state.enabled:
+            _state.counts = {}
+        _state.enabled = on
+
+
 def enable(on: bool = True) -> None:
-    _state.enabled = bool(on)
+    _switch(bool(on))
 
 
 def disable() -> None:
@@ -154,10 +207,6 @@ def disable() -> None:
 
 def is_enabled() -> bool:
     return _state.enabled
-
-
-def current_span() -> Optional[_Span]:
-    return _current.get()
 
 
 class tracing:
@@ -169,7 +218,7 @@ class tracing:
 
     def __enter__(self) -> None:
         self._prev = _state.enabled
-        _state.enabled = bool(self.on)
+        _switch(bool(self.on))
 
     def __exit__(self, *exc) -> bool:
         _state.enabled = self._prev
@@ -182,15 +231,21 @@ def reset_trace() -> None:
         _state.thread_names = {}
         _state.dropped = 0
         _state.next_id = 1
-        _state.t0_ns = time.perf_counter_ns()
+        _state.t0_ns, _state.unix_ns, _state.read_gap_ns = _clock_pair()
 
 
 def export_chrome_trace() -> Dict[str, Any]:
-    """Snapshot the buffer as a Perfetto/chrome://tracing document."""
+    """Snapshot the buffer as a Perfetto/chrome://tracing document, with
+    the clock origin and the counts under ``metadata``."""
     with _state.lock:
         events = list(_state.events)
         names = dict(_state.thread_names)
         dropped = _state.dropped
+        metadata: Dict[str, Any] = {
+            "clock": {"perf_counter_ns": _state.t0_ns,
+                      "unix_ns": _state.unix_ns,
+                      "read_gap_ns": _state.read_gap_ns},
+            "counts": dict(_state.counts)}
     pid = os.getpid()
     meta: List[Dict[str, Any]] = [
         {"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
@@ -198,11 +253,10 @@ def export_chrome_trace() -> Dict[str, Any]:
     for tid, tname in sorted(names.items()):
         meta.append({"name": "thread_name", "ph": "M", "pid": pid,
                      "tid": tid, "args": {"name": tname}})
-    doc: Dict[str, Any] = {"traceEvents": meta + events,
-                           "displayTimeUnit": "ms"}
     if dropped:
-        doc["metadata"] = {"dropped_events": dropped}
-    return doc
+        metadata["dropped_events"] = dropped
+    return {"traceEvents": meta + events, "displayTimeUnit": "ms",
+            "metadata": metadata}
 
 
 def save_trace(path: str) -> int:

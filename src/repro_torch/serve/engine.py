@@ -13,6 +13,13 @@ with its tokens. A vlm's prompt ends at position ``n_prefix_tokens + S -
 every family at ``S``, which overwrites a vlm's last prompt slots and
 rotates its tokens at the wrong positions (pinned in
 ``tests/test_torch_serve.py``).
+
+Traced (``repro_torch.obs``), ``generate`` opens ``engine.generate``, one
+``engine.prefill`` and one ``engine.decode_step`` per decoded token, and
+counts the prefill's slots (B x S, ``engine.prefill_slots``) against its
+real prompt tokens (``engine.prompt_tokens``); reading the lengths for
+that count waits for the device once, before the request's first launch,
+and only while tracing is on.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
+from repro_torch import obs
 from repro_torch.common import bf16
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.config import ModelConfig
@@ -66,6 +74,18 @@ def batch_lengths(batch: Dict[str, Any]) -> Optional[torch.Tensor]:
     else:
         return None
     return torch.clamp(lengths, 1, tokens.shape[1])
+
+
+def prompt_tokens(batch: Dict[str, Any], width: int) -> int:
+    """The real prompt tokens of a (B, ``width``) batch: its clamped
+    lengths summed, read on the host, so a device tensor waits once."""
+    if "lengths" in batch:
+        lengths = _tensor(batch["lengths"]).cpu()
+    elif "mask" in batch:
+        lengths = torch.sum(_tensor(batch["mask"]).cpu() > 0, dim=-1)
+    else:
+        return len(batch["tokens"]) * width
+    return int(torch.clamp(lengths, 1, width).sum())
 
 
 def left_align(tokens, lengths, pad_id: int = 0) -> torch.Tensor:
@@ -131,23 +151,31 @@ class ServeEngine:
         B, S = tokens.shape
         if n_tokens <= 0:
             return torch.zeros((B, 0), dtype=torch.int32, device=self.device)
-        lengths = batch_lengths({**batch, "tokens": tokens})
-        if lengths is not None:
-            tokens = left_align(tokens, lengths)
-        inputs = {k: _tensor(v, self.device) for k, v in batch.items()
-                  if k in ("patches", "frames")}
-        with torch.inference_mode():
-            last_logits, cache = self._prefill(self.params,
-                                               {**inputs, "tokens": tokens})
-            token = torch.argmax(last_logits, dim=-1).to(torch.int32)[:, None]
-            # every row's prompt now ends at physical slot S - 1 (after a
-            # vlm's visual prefix), so the first decoded token lands at the
-            # next slot for the whole batch
-            pos = S + (self.cfg.n_prefix_tokens
-                       if self.cfg.family == "vlm" else 0)
-            out = [token]
-            for _ in range(n_tokens - 1):
-                token, _, cache = self._step(self.params, cache, token, pos)
-                pos += 1
-                out.append(token)
-            return torch.cat(out, dim=1)
+        with obs.span("engine.generate", cat="serve", batch=B, width=S):
+            if obs.is_enabled():
+                obs.count("engine.prefill_slots", B * S)
+                obs.count("engine.prompt_tokens", prompt_tokens(batch, S))
+            lengths = batch_lengths({**batch, "tokens": tokens})
+            if lengths is not None:
+                tokens = left_align(tokens, lengths)
+            inputs = {k: _tensor(v, self.device) for k, v in batch.items()
+                      if k in ("patches", "frames")}
+            with torch.inference_mode():
+                with obs.span("engine.prefill", cat="serve"):
+                    last_logits, cache = self._prefill(
+                        self.params, {**inputs, "tokens": tokens})
+                token = torch.argmax(last_logits, dim=-1).to(
+                    torch.int32)[:, None]
+                # every row's prompt now ends at physical slot S - 1 (after
+                # a vlm's visual prefix), so the first decoded token lands
+                # at the next slot for the whole batch
+                pos = S + (self.cfg.n_prefix_tokens
+                           if self.cfg.family == "vlm" else 0)
+                out = [token]
+                for _ in range(n_tokens - 1):
+                    with obs.span("engine.decode_step", cat="serve"):
+                        token, _, cache = self._step(self.params, cache,
+                                                     token, pos)
+                    pos += 1
+                    out.append(token)
+                return torch.cat(out, dim=1)

@@ -504,10 +504,12 @@ class ArtifactStore:
            exactly (per-param or whole-model, ``t_thr`` rejection).
         """
         cod = self._codec_obj
-        parent_lazy = self.load_artifact(parent_ref)
-        pairs = [(pk, ck) for pk, ck in lcs_param_matching(parent_lazy, child)]
-        pvals = self.materialize_artifact(
-            parent_ref, keys=[pk for pk, _ in pairs]).params
+        with span("commit.parent", cat="store"):
+            parent_lazy = self.load_artifact(parent_ref)
+            pairs = [(pk, ck)
+                     for pk, ck in lcs_param_matching(parent_lazy, child)]
+            pvals = self.materialize_artifact(
+                parent_ref, keys=[pk for pk, _ in pairs]).params
 
         host = self.backend == "ref"
 
@@ -532,8 +534,9 @@ class ArtifactStore:
             if self.per_param and len(blob) >= p2.nbytes:
                 return None  # no saving for this tensor
             q32 = q if q.dtype == np.int32 else q.astype(np.int32)
-            recon, state = self._commit_truth(parent_ref, pkey, p1, q32,
-                                              bf16.dtype_name(p2))
+            with span("commit.truth", cat="store", key=ckey):
+                recon, state = self._commit_truth(parent_ref, pkey, p1, q32,
+                                                  bf16.dtype_name(p2))
             recon = recon.reshape(p2.shape)
             delta = ParamDelta(
                 child_key=ckey, parent_key=pkey, blob=blob, codec=self.codec,
@@ -1115,7 +1118,8 @@ class ArtifactStore:
             e = chain[level]
             item = e["chunks"][idx]
             if "c" in item:
-                base = self.cas.get_bytes_nomap(item["c"])
+                with span("checkout.read", cat="store"):
+                    base = self.cas.get_bytes_nomap(item["c"])
                 break
             if "p" in item:
                 level += 1
@@ -1128,13 +1132,16 @@ class ArtifactStore:
             return base
         value = np.frombuffer(base, dtype=np.float32)
         for e, item in reversed(hops):
-            blob = self.cas.get_bytes_nomap(item["b"])
+            with span("checkout.read", cat="store"):
+                blob = self.cas.get_bytes_nomap(item["b"])
             n = int(item["n"]) // 4
             # per-item ``k`` overrides the entry codec (density-adaptive
             # sparse pick at commit time); absent means the entry default
-            q = get_codec(item.get("k", e["codec"])).decode(
-                blob, n, dtype=item.get("q", "int32"))
-            value = host_dequant(value, q, float(e["eps"]))
+            with span("checkout.decode", cat="store"):
+                q = get_codec(item.get("k", e["codec"])).decode(
+                    blob, n, dtype=item.get("q", "int32"))
+            with span("checkout.apply", cat="store"):
+                value = host_dequant(value, q, float(e["eps"]))
             with self._lock:
                 self.io_stats["dequant_calls"] += 1
                 self.io_stats["chain_hops"] += 1
@@ -1160,7 +1167,7 @@ class ArtifactStore:
         on_pool = threading.current_thread().name.startswith(
             "artifact-store-io")
         if not on_pool and self.io_workers > 1 and len(spans) > 2:
-            list(self._executor().map(fill, range(len(spans))))
+            list(self._executor().map(propagate(fill), range(len(spans))))
         else:
             for i in range(len(spans)):
                 fill(i)
@@ -1430,17 +1437,19 @@ class ArtifactStore:
         chain-apply kernel (one HBM pass over base + q stack, int32
         reduction in registers) — bit-identical to host sum + dequant. Returns
         ``(value, qsum)``; the sum is only computed when the caller needs
-        it for a FoldState (``need_sum``) or the host path uses it."""
-        if len(open_qs) > 1 and self.backend != "ref":
-            out = np.asarray(ops.chain_apply(
-                np.asarray(value), open_qs, eps=eps, backend=self.backend,
-                out_dtype="float32"))
-            with self._lock:
-                self.io_stats["dequant_calls"] += 1
-            self._count_materialization(out)
-            return out, (self._sum_q(open_qs) if need_sum else None)
-        qsum = self._sum_q(open_qs)
-        return self._dequant(value, qsum, eps, "float32"), qsum
+        it for a FoldState (``need_sum``) or the host path uses it. Spanned
+        as ``checkout.apply``, with its copies and the host sum."""
+        with span("checkout.apply", cat="store"):
+            if len(open_qs) > 1 and self.backend != "ref":
+                out = np.asarray(ops.chain_apply(
+                    np.asarray(value), open_qs, eps=eps, backend=self.backend,
+                    out_dtype="float32"))
+                with self._lock:
+                    self.io_stats["dequant_calls"] += 1
+                self._count_materialization(out)
+                return out, (self._sum_q(open_qs) if need_sum else None)
+            qsum = self._sum_q(open_qs)
+            return self._dequant(value, qsum, eps, "float32"), qsum
 
     def _materialize_with_state(self, ref: str, key: str,
                                 plan: Optional[ReconstructionPlan] = None
@@ -1460,7 +1469,8 @@ class ArtifactStore:
         open_qs: List[np.ndarray] = []
         open_eps = 0.0
         if kind == "tensor":
-            value = self.cas.get_tensor(payload)
+            with span("checkout.read", cat="store"):
+                value = self.cas.get_tensor(payload)
             self._count_materialization(value)
         elif kind == "value":
             value = payload
@@ -1468,7 +1478,10 @@ class ArtifactStore:
             fs: FoldState = payload
             value, open_qs, open_eps = fs.seg_base, [fs.q_open], fs.eps
         for hop in hops:
-            q = decode_q(hop, self.cas.get_view(hop.blob))
+            with span("checkout.read", cat="store"):
+                blob = self.cas.get_view(hop.blob)
+            with span("checkout.decode", cat="store"):
+                q = decode_q(hop, blob)
             with self._lock:
                 self.io_stats["chain_hops"] += 1
             if self.fold_enabled and hop.dtype == "float32":
@@ -1486,8 +1499,9 @@ class ArtifactStore:
                     value, _ = self._apply_segment(value, open_qs, open_eps,
                                                    False)
                     open_qs = []
-                value = self._dequant(value, q, hop.eps, hop.dtype
-                                      ).reshape(hop.shape)
+                with span("checkout.apply", cat="store"):
+                    value = self._dequant(value, q, hop.eps, hop.dtype
+                                          ).reshape(hop.shape)
         state = None
         if open_qs:
             value = np.asarray(value)
@@ -1513,9 +1527,13 @@ class ArtifactStore:
         # whose itemsize has no native unsigned width (complex, …) delta
         # over a byte-wise view, so the blob holds nbytes uint8 elements
         n = n * bf16.np_dtype(e["dtype"]).itemsize // qdt.itemsize
-        d = get_codec(e["codec"]).decode(
-            self.cas.get_view(e["blob"]), n, dtype=str(qdt))
-        value = bitpattern_apply(parent, d, e["dtype"], tuple(e["shape"]))
+        with span("checkout.read", cat="store"):
+            blob = self.cas.get_view(e["blob"])
+        with span("checkout.decode", cat="store"):
+            d = get_codec(e["codec"]).decode(blob, n, dtype=str(qdt))
+        with span("checkout.apply", cat="store"):
+            value = bitpattern_apply(parent, d, e["dtype"],
+                                     tuple(e["shape"]))
         with self._lock:
             self.io_stats["chain_hops"] += 1
         self._count_materialization(value)
