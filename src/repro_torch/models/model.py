@@ -408,8 +408,12 @@ def _cross_from_cache(x, p, cfg: ModelConfig, cross):
 def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor
            ) -> torch.Tensor:
     x = params["embed"]["tok"][tokens]
-    x = x * torch.tensor(np.sqrt(cfg.d_model).astype(np.float32),
-                         device=x.device)
+    # a float32 scalar filled on x's device: no host-to-device copy, so a
+    # CUDA graph can capture it, and the same product as a copied one (on
+    # the card a float32 device operand is rounded to a bf16 x's dtype
+    # before the multiply, which a host scalar would not be)
+    x = x * torch.full((), float(np.sqrt(cfg.d_model).astype(np.float32)),
+                       dtype=torch.float32, device=x.device)
     return shard(x, ("pod", "data"), None, None).to(torch_dtype(cfg.dtype))
 
 

@@ -13,7 +13,8 @@ prefill/decode engine for every model family, whose prefill runs the
 flash-attention kernel on the card.
 """
 
-from repro_torch.serve.engine import (ServeEngine, batch_lengths, left_align,
+from repro_torch.serve.engine import (ServeEngine, batch_lengths,
+                                      graph_eligible, left_align,
                                       make_prefill_step, make_serve_step)
 from repro_torch.serve.pool import BitIdentityError, ModelPool, ResidentView
 from repro_torch.serve.router import (Endpoint, EndpointUnavailable, Router,
@@ -23,7 +24,7 @@ from repro_torch.serve.watch import (HubLineageSource, LineageWatcher,
                                      LocalLineageSource)
 
 __all__ = [
-    "ServeEngine", "batch_lengths", "left_align",
+    "ServeEngine", "batch_lengths", "graph_eligible", "left_align",
     "make_prefill_step", "make_serve_step",
     "BitIdentityError", "ModelPool", "ResidentView",
     "Endpoint", "EndpointUnavailable", "Router",

@@ -233,8 +233,9 @@ def engine():
 def test_engine_counts_slots_and_prompt_tokens(engine, declared,
                                                monkeypatch):
     """A ragged batch of 3 x 8 counts 24 slots and its clamped lengths as
-    prompt tokens (a length of 0 holds one slot, 11 is cut to 8); prefill
-    and each decode step are spanned, through the module's ``prefill`` and
+    prompt tokens (a length of 0 holds one slot, 11 is cut to 8) and its 3
+    decode steps as eager (an engine on the CPU); prefill and each decode
+    step are spanned, through the module's ``prefill`` and
     ``decode_step``, which the benchmark times from outside."""
     called = {"prefill": 0, "decode_step": 0}
     for name in called:
@@ -260,7 +261,8 @@ def test_engine_counts_slots_and_prompt_tokens(engine, declared,
         out = engine.generate(batch, 4)
     assert torch.equal(out, untraced)
     assert obs.counts() == {"engine.prefill_slots": 24,
-                            "engine.prompt_tokens": want}
+                            "engine.prompt_tokens": want,
+                            "engine.decode_eager_steps": 3}
     assert called == {"prefill": 2, "decode_step": 6}
     events = _events(obs.export_chrome_trace())
     chain = _parents(events)
