@@ -726,6 +726,11 @@ QWEN3_SERVE_SHAPE = dict(B=8, Hq=16, Hkv=8, S=512, hd=128)
 # prefill: 256 patch embeddings (a bidirectional prefix) + 512 text tokens
 PALIGEMMA_SERVE_SHAPE = dict(B=8, Hq=8, Hkv=1, S=768, hd=256)
 PALIGEMMA_MASKS = dict(causal=True, prefix_len=256)
+# configs/granite_4_0_h_small.py's attention (NoPE GQA, head_dim 128) at
+# the benchmark's rag prefill (2 prompts of up to 4096 tokens), scaled by
+# its attention_multiplier in place of head_dim ** -0.5
+GRANITE_RAG_SHAPE = dict(B=2, Hq=32, Hkv=8, S=4096, hd=128)
+GRANITE_MASKS = dict(causal=True, scale=1 / 128)
 
 
 def flash_cases():
@@ -734,7 +739,8 @@ def flash_cases():
     lengths (one with GQA at head_dim 128), the serving prefills of
     paper-bert (phases 4b, 4c) and qwen3-0.6b (phase 4d), the qwen3-0.6b
     geometry at 4096 tokens, a head_dim the wrapper pads (100 -> 104), a
-    window that masks a row's whole first key tile;
+    window that masks a row's whole first key tile, granite's prefill
+    with its own softmax scale;
     at head_dim 256: paligemma-3b's prefill (phase 8), a prefix past a
     query tile, a window, no mask over a ragged length, and a padded
     head_dim (200)."""
@@ -757,6 +763,7 @@ def flash_cases():
          dict(causal=True, prefix_len=70)),
         (dict(B=1, Hq=2, Hkv=1, S=130, hd=64),
          dict(causal=True, window=50)),
+        (GRANITE_RAG_SHAPE, GRANITE_MASKS),
         (PALIGEMMA_SERVE_SHAPE, PALIGEMMA_MASKS),
         (dict(B=1, Hq=4, Hkv=2, S=200, hd=256),
          dict(causal=True, prefix_len=100)),
@@ -777,7 +784,10 @@ def flash_inputs(gen, shape, dtype):
 
 def check_flash(gen, bad):
     """The flash kernel against its plain version on the same card inputs,
-    in f32, bf16 and f16. Returns {dtype name: largest |kernel - plain|}."""
+    in f32, bf16 and f16, one launch a case. Where a case gives a
+    ``scale``, the plain version at the default scale must lie past the
+    tolerance, so that a kernel ignoring the scale fails. Returns {dtype
+    name: largest |kernel - plain|}."""
     import torch
 
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -788,16 +798,31 @@ def check_flash(gen, bad):
         worst[name] = 0.0
         for shape, masks in flash_cases():
             q, k, v = flash_inputs(gen, shape, dtype)
+            before = flash_attention.launches
             got = flash_attention(q, k, v, **masks)
             torch.cuda.synchronize()
+            launched = flash_attention.launches - before
             plain = flash_attention_ref(q, k, v, **masks)
             err = max_abs(got, plain)
             worst[name] = max(worst[name], err)
             if got.dtype != dtype or got.shape != q.shape or not (
-                    err <= FLASH_TOL[name]):
+                    err <= FLASH_TOL[name]) or launched != 1:
                 bad.append(f"flash_attention {name} {shape} {masks}: "
                            f"max |kernel - plain| {err} (tolerance "
-                           f"{FLASH_TOL[name]})")
+                           f"{FLASH_TOL[name]}), {launched} launches")
+            if "scale" in masks:
+                unscaled = {m: x for m, x in masks.items() if m != "scale"}
+                apart = max_abs(got, flash_attention_ref(q, k, v,
+                                                         **unscaled))
+                print(f"flash {name} {shape} {masks}: max |kernel - plain| "
+                      f"{err:.4g}, {apart:.4g} from the default scale's",
+                      flush=True)
+                if not apart > 2 * FLASH_TOL[name]:
+                    bad.append(f"flash_attention {name} {shape}: the "
+                               f"default scale's result lies {apart} from "
+                               f"the kernel's: the check could miss the "
+                               f"scale")
+            del q, k, v, got, plain
     return worst
 
 

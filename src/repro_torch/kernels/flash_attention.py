@@ -7,7 +7,8 @@ hd), k and v (B, Hkv, Skv, hd), with query head ``h`` reading KV head
 ``h // (Hq // Hkv)``; the result has q's shape and dtype, accumulated in
 f32. Query and key positions both count from 0, so causal, sliding-window
 (``q - k < window``) and prefix-LM (``k < prefix_len`` is visible under a
-causal mask) masks are the reference's.
+causal mask) masks are the reference's. Scores are scaled by ``hd **
+-0.5``, or by ``scale`` where the caller gives one.
 
 The kernel runs on Hopper's tensor cores through ``wgmma``: bf16 and f16
 directly (P rounded to the input's type for the second product), f32 as
@@ -31,6 +32,8 @@ from the shapes. Its ``launches`` attribute counts kernel launches, and
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -75,14 +78,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int):
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
-                        prefix_len: int = 0) -> torch.Tensor:
+                        prefix_len: int = 0,
+                        scale: Optional[float] = None) -> torch.Tensor:
     """Dense f32 softmax attention, the reference's oracle."""
     _, Hq, Sq, hd = q.shape
     _, Hkv, Skv, _ = k.shape
     G = Hq // Hkv
     kf = torch.repeat_interleave(k, G, dim=1).to(torch.float32)
     vf = torch.repeat_interleave(v, G, dim=1).to(torch.float32)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32) * hd ** -0.5, kf)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32)
+                     * (hd ** -0.5 if scale is None else scale), kf)
     q_pos = torch.arange(Sq, device=q.device)[:, None]
     k_pos = torch.arange(Skv, device=q.device)[None, :]
     ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
@@ -115,14 +120,16 @@ def kernel_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    prefix_len: int = 0) -> torch.Tensor:
+                    prefix_len: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, Hq, Sq, hd); k, v: (B, Hkv, Skv, hd) -> (B, Hq, Sq, hd).
 
+    ``scale`` multiplies the scores in place of ``hd ** -0.5``.
     ``meta`` operands (a dry run) go through the operator
     ``torch.ops.mgit.flash_attention``, which only gives the result's
-    shape and has ``flops`` registered as its count for
-    ``torch.utils.flop_counter``. CUDA operands launch the kernel directly,
-    without the dispatcher's cost per call; the operator's CUDA
+    shape (so it takes no scale) and has ``flops`` registered as its count
+    for ``torch.utils.flop_counter``. CUDA operands launch the kernel
+    directly, without the dispatcher's cost per call; the operator's CUDA
     implementation is the same launch, and its CPU one the plain
     version."""
     _check(q, k, v, window)
@@ -131,11 +138,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                               prefix_len)
     if not build.on_card(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   prefix_len=prefix_len)
-    return _launch(q, k, v, causal, window, prefix_len)
+                                   prefix_len=prefix_len, scale=scale)
+    return _launch(q, k, v, causal, window, prefix_len, scale)
 
 
-def _launch(q, k, v, causal, window, prefix_len):
+def _launch(q, k, v, causal, window, prefix_len, scale=None):
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v are {q.dtype}, {k.dtype}, {v.dtype}: the "
                         f"kernel takes float32, bfloat16 or float16, all "
@@ -157,7 +164,8 @@ def _launch(q, k, v, causal, window, prefix_len):
                      kq.data_ptr(), kk.data_ptr(), kv.data_ptr(),
                      out.data_ptr(), B, Hq, Hkv, Sq, Skv, kq.shape[-1],
                      int(causal), int(window), int(prefix_len),
-                     float(hd ** -0.5), _DTYPE_CODES[q.dtype])
+                     float(hd ** -0.5 if scale is None else scale),
+                     _DTYPE_CODES[q.dtype])
         build.count_launch(flash_attention,
                            str(q.dtype).removeprefix("torch."))
     return out if kq.shape[-1] == hd else out[..., :hd].contiguous()

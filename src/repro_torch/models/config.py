@@ -28,17 +28,27 @@ class ModelConfig:
     experts_per_token: int = 0
     n_shared_experts: int = 0
     capacity_factor: float = 1.25
+    n_local_experts: int = 0        # experts held here, from 0 up; 0 -> all
+    dropless: bool = False          # route every choice (no capacity)
+    shared_d_ff: int = 0            # the shared expert's width; 0 -> d_ff
     # --- SSM (Mamba2 / SSD) ---
     ssm_state: int = 0
     ssm_expand: int = 2
     ssm_head_dim: int = 64
     ssm_chunk: int = 256
     ssm_conv_width: int = 4
-    # --- hybrid (jamba): one attention layer per `attn_period` layers, MoE on
-    # every `moe_period`-th layer ---
+    ssm_conv_bias: bool = False
+    # --- hybrid (jamba, granite): one attention layer per `attn_period`
+    # layers, MoE on every `moe_period`-th layer ---
     attn_period: int = 0
     attn_offset: int = 4
     moe_period: int = 0
+    # --- positions and muP multipliers (granite); defaults change nothing ---
+    nope: bool = False              # no positional encoding in attention
+    embedding_multiplier: float = 0.0   # 0 -> sqrt(d_model)
+    residual_multiplier: float = 1.0    # on every sublayer's output
+    attention_multiplier: float = 0.0   # softmax scale; 0 -> head_dim**-0.5
+    logits_scaling: float = 1.0         # logits are divided by it
     # --- enc-dec / frontends ---
     n_encoder_layers: int = 0
     frontend: str = "none"          # none | vision_stub | audio_stub
@@ -63,6 +73,11 @@ class ModelConfig:
     @property
     def n_ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    @property
+    def held_experts(self) -> int:
+        """The experts whose weights this model holds: 0 .. n - 1."""
+        return self.n_local_experts or self.n_experts
 
     def is_attention_layer(self, i: int) -> bool:
         if self.family == "ssm":
@@ -91,6 +106,8 @@ class ModelConfig:
             head_dim=32 if self.n_heads else 0,
             n_experts=min(self.n_experts, 4),
             experts_per_token=min(self.experts_per_token, 2),
+            n_local_experts=min(self.n_local_experts, 4),
+            shared_d_ff=512 if self.shared_d_ff else 0,
             # no-drop capacity so decode (tiny T) matches full forward exactly
             capacity_factor=float(min(self.n_experts, 4) or 1),
             ssm_state=min(self.ssm_state, 32) if self.ssm_state else 0,
@@ -102,7 +119,9 @@ class ModelConfig:
             attn_chunk=64,
             dtype="float32",
         )
-        if self.family == "hybrid":
+        # a hybrid with MoE after every mixer (granite) keeps its own period
+        # of ``attn_period`` layers and its attention offset
+        if self.family == "hybrid" and self.moe_period != 1:
             small = dataclasses.replace(small, attn_period=4, attn_offset=2,
                                         moe_period=2, n_layers=4)
         return dataclasses.replace(small, **overrides)

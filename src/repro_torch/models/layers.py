@@ -24,7 +24,14 @@ computes it.
 tokens (the reference's block count is 1 without a device mesh): routing
 in f32, per-expert capacity, a scatter into capacity slots and the mirror
 gather, and the shared expert. Its expert products are ``torch.einsum``,
-as the reference leaves them to XLA outside any Pallas kernel.
+as the reference leaves them to XLA outside any Pallas kernel. With
+``cfg.dropless`` it is ``moe_dropless`` instead: every choice is
+computed, over only the rows routed to the experts held here
+(``cfg.held_experts``), as grouped products (``grouped_mm``).
+
+Granite's attention (``cfg.nope``: no rotary positions;
+``cfg.attention_multiplier``: the softmax scale in place of
+``head_dim ** -0.5``) runs through the same functions.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.dist.sharding import shard
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig
@@ -110,7 +118,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, Hq, hd = q.shape
     _, Skv, Hkv, _ = k.shape
     G = Hq // Hkv
-    scale = hd ** -0.5
+    scale = cfg.attention_multiplier or hd ** -0.5
     qc = _fit(Sq, cfg.attn_chunk)
     kc = _fit(Skv, cfg.attn_chunk)
     n_q, n_k = Sq // qc, Skv // kc
@@ -206,7 +214,7 @@ def attention_layer(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    if xa is None:  # self-attention: rotary positions
+    if xa is None and not cfg.nope:  # self-attention: rotary positions
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     if cache is None:
@@ -218,11 +226,15 @@ def attention_layer(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
         _write_cache(cache, k, v, cache_pos, ring)
         if S > 1:
             # prefill: causal attention over the prompt itself; the cache
-            # is only written, not attended
+            # is only written, not attended. The scale is passed only
+            # where the configuration sets one.
+            scale = ({"scale": cfg.attention_multiplier}
+                     if cfg.attention_multiplier else {})
             out = flash_attention(
                 q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
                 v.transpose(1, 2).contiguous(), causal=True,
-                window=cfg.window, prefix_len=prefix_len).transpose(1, 2)
+                window=cfg.window, prefix_len=prefix_len,
+                **scale).transpose(1, 2)
         else:
             Sc = cache["k"].shape[1]
             kv_len = min(cache_pos + S, Sc) if ring else cache_pos + S
@@ -247,7 +259,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, Hq, hd = q.shape
     _, Skv, Hkv, _ = k.shape
     G = Hq // Hkv
-    q = q.reshape(B, Sq, Hkv, G, hd).to(torch.float32) * hd ** -0.5
+    q = q.reshape(B, Sq, Hkv, G, hd).to(torch.float32) * (
+        cfg.attention_multiplier or hd ** -0.5)
     s = torch.einsum("bqhgd,bchd->bqhgc", q, k.to(torch.float32))
     slot = torch.arange(Skv, device=q.device)
     valid = ((cache_pos - slot) % Skv < kv_len) if ring else slot < kv_len
@@ -282,6 +295,15 @@ def top_k(logits: torch.Tensor, k: int):
     return values[..., :k], idx[..., :k]
 
 
+def choose(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """Router logits (T, E) of tokens xt (T, D) in f32, each token's top-K
+    experts ``sel`` and the softmax over those K logits, ``weights``."""
+    logits = torch.einsum("td,de->te", xt.to(torch.float32),
+                          router.to(torch.float32))
+    weights, sel = top_k(logits, cfg.experts_per_token)   # (T, K)
+    return logits, sel, torch.softmax(weights, dim=-1)
+
+
 def route(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
     """The MoE's routing of tokens xt (T, D), in f32: router logits (T,
     E), each token's top-K experts ``sel`` and softmaxed ``weights`` (T,
@@ -291,10 +313,7 @@ def route(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
     T = xt.shape[0]
     E, K = cfg.n_experts, cfg.experts_per_token
     C = min(max(int(cfg.capacity_factor * T * K / E), 1), T)
-    logits = torch.einsum("td,de->te", xt.to(torch.float32),
-                          router.to(torch.float32))
-    weights, sel = top_k(logits, K)                       # (T, K)
-    weights = torch.softmax(weights, dim=-1)
+    logits, sel, weights = choose(xt, router, cfg)
     onehot = F.one_hot(sel, E).to(torch.float32)          # (T, K, E)
     pos = (torch.cumsum(onehot.reshape(T * K, E), dim=0).reshape(T, K, E)
            - onehot)
@@ -309,6 +328,11 @@ def moe(x: torch.Tensor, p: Dict, cfg: ModelConfig) -> torch.Tensor:
     capacity ``C = max(int(capacity_factor * T * K / E), 1)`` clipped to
     T (``route``). A choice past C drops (weight 0) to a sentinel slot,
     whose gather reads 0."""
+    if cfg.dropless:
+        return moe_dropless(x, p, cfg)
+    if cfg.held_experts != cfg.n_experts:
+        raise ValueError(f"{cfg.held_experts} of {cfg.n_experts} experts "
+                         f"held: a share of the experts routes dropless")
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     T = B * S
@@ -344,6 +368,69 @@ def moe(x: torch.Tensor, p: Dict, cfg: ModelConfig) -> torch.Tensor:
     return out.reshape(B, S, D)
 
 
+def grouped_mm(rows: torch.Tensor, weights: torch.Tensor,
+               offsets: torch.Tensor) -> torch.Tensor:
+    """Grouped product, one launch for all groups: rows (R, K), weights
+    (G, K, N), ``offsets`` (G,) int32 on the rows' device, the end of each
+    group's rows (group g is rows ``offsets[g - 1]`` up to ``offsets[g]``,
+    from 0). Returns (R, N); rows past ``offsets[-1]`` are computed by no
+    group and their values are undefined. Every grouped product of the MoE
+    goes through here."""
+    return torch._grouped_mm(rows, weights, offs=offsets)
+
+
+def moe_dropless(x: torch.Tensor, p: Dict, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    """Top-K MoE without capacity, over the experts held here.
+
+    Routes each of the T = B * S tokens over all ``n_experts``
+    (``choose``); of the T * K choices, those of experts ``0 ..
+    held_experts - 1`` are ordered by expert (a stable sort: token order
+    within an expert) ahead of the rest, with each expert's end offset
+    found on the device, so nothing waits for the host. Gate, up and down
+    are one ``grouped_mm`` each over those rows alone; each choice's
+    result, back in (token, choice) order, is weighted by its softmax
+    weight, and a choice of an expert held elsewhere adds nothing. The
+    shared expert is added once.
+
+    Traced (``repro_torch.obs``): spans ``moe.route`` and ``moe.experts``;
+    counts ``moe.choices`` (T * K) and ``moe.local_rows``, the rows the
+    grouped products compute, added on the device only while tracing and
+    read when the counts are read. Experts are SwiGLUs (the one dropless
+    configuration, granite's)."""
+    if cfg.mlp_type != "swiglu":
+        raise ValueError(f"mlp_type {cfg.mlp_type!r}: dropless experts are "
+                         f"SwiGLUs")
+    B, S, D = x.shape
+    K, E = cfg.experts_per_token, cfg.held_experts
+    T = B * S
+    xt = x.reshape(T, D)
+    with obs.span("moe.route", cat="model"):
+        _, sel, weights = choose(xt, p["router"], cfg)
+        local = sel < E
+        key, order = torch.sort(torch.where(local, sel, E).reshape(T * K),
+                                stable=True)
+        offsets = torch.searchsorted(
+            key, torch.arange(E, device=x.device), right=True
+        ).to(torch.int32)
+        rows = xt[order // K]                       # local rows first
+    obs.count("moe.choices", T * K)
+    if obs.is_enabled():
+        obs.count("moe.local_rows", offsets[-1].to(torch.int64))
+    with obs.span("moe.experts", cat="model"):
+        h = F.silu(grouped_mm(rows, p["w_gate"], offsets)) * grouped_mm(
+            rows, p["w_in"], offsets)
+        y = grouped_mm(h, p["w_out"], offsets)
+        back = torch.empty_like(order).scatter_(
+            0, order, torch.arange(T * K, device=x.device))
+        y = torch.where(local[..., None], y[back].reshape(T, K, D),
+                        torch.zeros((), dtype=y.dtype, device=y.device))
+        out = torch.einsum("tk,tkd->td", weights.to(x.dtype), y)
+        if cfg.n_shared_experts > 0:
+            out = out + mlp(x, p, cfg, prefix="shared_w").reshape(T, D)
+    return out.reshape(B, S, D)
+
+
 __all__ = ["NEG_INF", "rmsnorm", "rope", "chunked_attention",
            "attention_layer", "decode_attention", "mlp", "moe", "route",
-           "top_k"]
+           "top_k", "choose", "grouped_mm", "moe_dropless"]

@@ -5,7 +5,8 @@ Families (``cfg.family``), as in the reference package's
   dense / moe          decoder-only LM (GQA/MQA/SWA attention, MLP or MoE)
   ssm                  attention-free Mamba2 stack
   hybrid               jamba-style groups of ``attn_period`` sublayers
-                       (1 attention + N-1 mamba, alternating MoE/MLP)
+                       (1 attention + N-1 mamba, alternating MoE/MLP, or
+                       MoE after every mixer with ``moe_period`` 1)
   encdec / audio       encoder-decoder; the audio frontend is a stub that
                        feeds precomputed frame embeddings
   vlm                  decoder LM with a visual prefix (patch embeddings)
@@ -67,31 +68,35 @@ def _attn_shapes(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Tuple]:
     return s
 
 
-def _mlp_shapes(cfg: ModelConfig, lead: Tuple[int, ...], prefix: str = "w"
-                ) -> Dict[str, Tuple]:
-    s = {f"{prefix}_in": lead + (cfg.d_model, cfg.d_ff),
-         f"{prefix}_out": lead + (cfg.d_ff, cfg.d_model)}
+def _mlp_shapes(cfg: ModelConfig, lead: Tuple[int, ...], prefix: str = "w",
+                d_ff: int = 0) -> Dict[str, Tuple]:
+    F = d_ff or cfg.d_ff
+    s = {f"{prefix}_in": lead + (cfg.d_model, F),
+         f"{prefix}_out": lead + (F, cfg.d_model)}
     if cfg.mlp_type == "swiglu":
-        s[f"{prefix}_gate"] = lead + (cfg.d_model, cfg.d_ff)
+        s[f"{prefix}_gate"] = lead + (cfg.d_model, F)
     return s
 
 
 def _moe_shapes(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Tuple]:
-    E = cfg.n_experts
-    s = {"router": lead + (cfg.d_model, E),
+    """The router over all ``n_experts``; the weights of the experts held
+    here (``held_experts``); a shared expert of width ``shared_d_ff``."""
+    E = cfg.held_experts
+    s = {"router": lead + (cfg.d_model, cfg.n_experts),
          "w_in": lead + (E, cfg.d_model, cfg.d_ff),
          "w_out": lead + (E, cfg.d_ff, cfg.d_model)}
     if cfg.mlp_type == "swiglu":
         s["w_gate"] = lead + (E, cfg.d_model, cfg.d_ff)
     if cfg.n_shared_experts:
-        s.update(_mlp_shapes(cfg, lead, prefix="shared_w"))
+        s.update(_mlp_shapes(cfg, lead, prefix="shared_w",
+                             d_ff=cfg.shared_d_ff))
     return s
 
 
 def _ssm_shapes(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Tuple]:
     N, H = cfg.ssm_state, cfg.n_ssm_heads
     conv_dim = cfg.d_inner + 2 * N
-    return {
+    s = {
         "in_proj": lead + (cfg.d_model, 2 * cfg.d_inner + 2 * N + H),
         "conv_w": lead + (cfg.ssm_conv_width, conv_dim),
         "A_log": lead + (H,),
@@ -100,6 +105,9 @@ def _ssm_shapes(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, Tuple]:
         "norm": lead + (cfg.d_inner,),
         "out_proj": lead + (cfg.d_inner, cfg.d_model),
     }
+    if cfg.ssm_conv_bias:
+        s["conv_b"] = lead + (conv_dim,)
+    return s
 
 
 def _hybrid_counts(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -139,8 +147,9 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple]:
             shapes[f"groups/ssm/{k}"] = v
         for k, v in _moe_shapes(cfg, (ng, n_moe)).items():
             shapes[f"groups/moe/{k}"] = v
-        for k, v in _mlp_shapes(cfg, (ng, n_mlp)).items():
-            shapes[f"groups/mlp/{k}"] = v
+        if n_mlp:
+            for k, v in _mlp_shapes(cfg, (ng, n_mlp)).items():
+                shapes[f"groups/mlp/{k}"] = v
         shapes["groups/ln1"] = (ng, cfg.attn_period, cfg.d_model)
         shapes["groups/ln2"] = (ng, cfg.attn_period, cfg.d_model)
 
@@ -176,8 +185,8 @@ def _init_one(path: str, shape: Tuple, cfg: ModelConfig,
     dtype = torch_dtype(cfg.dtype)
     dev = generator.device
     last = path.rsplit("/", 1)[-1]
-    if last in _NORM_LEAVES:
-        return torch.zeros(shape, dtype=dtype, device=dev)  # 1+w convention
+    if last in _NORM_LEAVES or last == "conv_b":  # 1+w convention; a bias
+        return torch.zeros(shape, dtype=dtype, device=dev)
     if last == "A_log":
         return torch.log(torch.linspace(1.0, 16.0, shape[-1],
                                         dtype=torch.float32, device=dev)
@@ -311,9 +320,17 @@ def _ssm_step(h, sp, cfg: ModelConfig, state=None, conv=None):
     return out
 
 
+def _residual(x, out, cfg: ModelConfig):
+    """``x`` plus a hybrid sublayer's output times
+    ``cfg.residual_multiplier`` (granite's muP; 1 multiplies nothing)."""
+    if cfg.residual_multiplier != 1.0:
+        out = out * cfg.residual_multiplier
+    return x + out
+
+
 def _hybrid_group(x, gp, cfg: ModelConfig, positions, cache=None,
                   cache_pos=0):
-    """One jamba group: ``attn_period`` sublayers, each mixer + FFN."""
+    """One hybrid group: ``attn_period`` sublayers, each mixer + FFN."""
     i_ssm = i_moe = i_mlp = 0
     for j in range(cfg.attn_period):
         h = rmsnorm(x, gp["ln1"][j], cfg.norm_eps)
@@ -327,13 +344,13 @@ def _hybrid_group(x, gp, cfg: ModelConfig, positions, cache=None,
                 *((cache["ssm_state"][i_ssm], cache["ssm_conv"][i_ssm])
                   if cache else ()))
             i_ssm += 1
-        x = x + out
+        x = _residual(x, out, cfg)
         h = rmsnorm(x, gp["ln2"][j], cfg.norm_eps)
         if (j % cfg.moe_period) == cfg.moe_period - 1:
-            x = x + moe(h, _layer(gp["moe"], i_moe), cfg)
+            x = _residual(x, moe(h, _layer(gp["moe"], i_moe), cfg), cfg)
             i_moe += 1
         else:
-            x = x + mlp(h, _layer(gp["mlp"], i_mlp), cfg)
+            x = _residual(x, mlp(h, _layer(gp["mlp"], i_mlp), cfg), cfg)
             i_mlp += 1
     return x
 
@@ -408,11 +425,13 @@ def _cross_from_cache(x, p, cfg: ModelConfig, cross):
 def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor
            ) -> torch.Tensor:
     x = params["embed"]["tok"][tokens]
-    # a float32 scalar filled on x's device: no host-to-device copy, so a
+    # times sqrt(d_model), or the configured ``embedding_multiplier``: a
+    # float32 scalar filled on x's device: no host-to-device copy, so a
     # CUDA graph can capture it, and the same product as a copied one (on
     # the card a float32 device operand is rounded to a bf16 x's dtype
     # before the multiply, which a host scalar would not be)
-    x = x * torch.full((), float(np.sqrt(cfg.d_model).astype(np.float32)),
+    scale = cfg.embedding_multiplier or np.sqrt(cfg.d_model)
+    x = x * torch.full((), float(np.float32(scale)),
                        dtype=torch.float32, device=x.device)
     return shard(x, ("pod", "data"), None, None).to(torch_dtype(cfg.dtype))
 
@@ -423,6 +442,8 @@ def _unembed(cfg: ModelConfig, params: Params, x: torch.Tensor
     head = (params["embed"]["tok"].T if cfg.tie_embeddings
             else params["lm_head"])
     logits = torch.einsum("bsd,dv->bsv", x, head)
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
     return shard(logits, ("pod", "data"), None, "model")
 
 

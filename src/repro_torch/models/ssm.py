@@ -13,6 +13,7 @@ that tensor would take about 13 GB in f32. The scan over chunks is a loop.
 Parameter layout per layer (stacked over L in the model):
   in_proj: (D, 2*d_inner + 2*G*N + H)   [z | x | B | C | dt]
   conv_w : (K, d_inner + 2*G*N)         depthwise causal conv
+  conv_b : (d_inner + 2*G*N,)           its bias, with cfg.ssm_conv_bias
   A_log, dt_bias, D: (H,)               float32 in every model dtype
   norm   : (d_inner,)  gated RMSNorm before out_proj
   out_proj: (d_inner, D)
@@ -39,8 +40,10 @@ def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 cache: Optional[torch.Tensor] = None):
-    """Depthwise causal conv. x: (B,S,Cd), w: (K,Cd). Returns (y, new_cache)."""
+                 cache: Optional[torch.Tensor] = None,
+                 b: Optional[torch.Tensor] = None):
+    """Depthwise causal conv. x: (B,S,Cd), w: (K,Cd), bias b: (Cd,) or
+    None. Returns (y, new_cache)."""
     K = w.shape[0]
     if cache is None:
         pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
@@ -49,6 +52,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
         pad = cache
     xp = torch.cat([pad, x], dim=1)  # (B, S+K-1, Cd)
     y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(K))
+    if b is not None:
+        y = y + b
     new_cache = xp[:, -(K - 1):] if K > 1 else pad
     return y, new_cache
 
@@ -120,7 +125,8 @@ def ssm_layer(x: torch.Tensor, p: Dict, cfg: ModelConfig,
 
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
     conv_out, new_conv = _causal_conv(conv_in, p["conv_w"],
-                                      cache["conv"] if cache else None)
+                                      cache["conv"] if cache else None,
+                                      p.get("conv_b"))
     conv_out = F.silu(conv_out)
     xs = conv_out[..., :cfg.d_inner]
     Bm = conv_out[..., cfg.d_inner:cfg.d_inner + G * N]

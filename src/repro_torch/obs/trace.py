@@ -158,7 +158,10 @@ def span(name: str, cat: str = "app", **args):
 
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the traced scope's total ``name``.  When tracing is
-    off this is one branch, as :func:`span` is."""
+    off this is one branch, as :func:`span` is.  ``n`` may be a 0-dim
+    integer tensor on the card: it is added there, so the caller does not
+    wait on the card, and the total is read when :func:`counts` or the
+    export reads it."""
     if not _state.enabled:
         return
     with _state.lock:
@@ -168,7 +171,7 @@ def count(name: str, n: int = 1) -> None:
 def counts() -> Dict[str, int]:
     """The totals of the last traced scope (a copy)."""
     with _state.lock:
-        return dict(_state.counts)
+        return {k: int(v) for k, v in _state.counts.items()}
 
 
 def propagate(fn):
@@ -245,7 +248,7 @@ def export_chrome_trace() -> Dict[str, Any]:
             "clock": {"perf_counter_ns": _state.t0_ns,
                       "unix_ns": _state.unix_ns,
                       "read_gap_ns": _state.read_gap_ns},
-            "counts": dict(_state.counts)}
+            "counts": {k: int(v) for k, v in _state.counts.items()}}
     pid = os.getpid()
     meta: List[Dict[str, Any]] = [
         {"name": "process_name", "ph": "M", "pid": pid, "tid": 0,

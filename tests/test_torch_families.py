@@ -44,9 +44,9 @@ from repro.models.ssm import ssd_chunked as ref_ssd_chunked
 from repro.store.checkpoint import flatten_state
 
 import repro_torch.convert as convert
-from repro_torch.models import (cache_shapes, decode_step, flat_paths,
-                                forward, get_config, init_params, list_archs,
-                                param_shapes, prefill)
+from repro_torch.models import (ModelConfig, cache_shapes, decode_step,
+                                flat_paths, forward, get_config, init_params,
+                                list_archs, param_shapes, prefill)
 from repro_torch.models.layers import moe, top_k
 from repro_torch.models.ssm import ssd_chunked, ssm_layer
 
@@ -103,12 +103,19 @@ def _close_caches(ref_cache, cache, what):
 # shapes, init and conversion
 # ---------------------------------------------------------------------------
 
+# the one arch only the port has
+PORT_ARCHS = ["granite-4.0-h-small"]
+
+
 def test_all_eleven_configs_are_registered_with_the_reference_fields():
-    assert list_archs() == ref_list_archs()
-    assert len(list_archs()) == 12     # eleven configs + paper-bert-small
-    for name in list_archs():
-        assert (dataclasses.asdict(get_config(name))
-                == dataclasses.asdict(ref_get_config(name)))
+    """Every reference arch is registered with the reference's fields, and
+    with the port's own (granite's) fields at their defaults, which change
+    nothing; granite-4.0-h-small is the one arch only the port has."""
+    assert list_archs() == sorted(ref_list_archs() + PORT_ARCHS)
+    assert len(list_archs()) == 13   # eleven, paper-bert-small, granite
+    for name in ref_list_archs():
+        assert get_config(name) == ModelConfig(
+            **dataclasses.asdict(ref_get_config(name)))
 
 
 @pytest.mark.parametrize("name", sorted(ref_list_archs()))
